@@ -1,10 +1,10 @@
-// Native host-side helpers for sblas-tpu.
+// Native host-side helpers for sblas.
 //
 // The reference implements its host-side analysis passes in C++ (SURVEY.md
-// C1/C7: mmio parsing, level-set construction). These are the TPU rebuild's
-// equivalents: sequential O(nnz) passes that are pathological for numpy but
-// trivial in C++. Built as a plain shared library, loaded via ctypes
-// (pybind11 not available in this environment).
+// C1/C7: mmio parsing, level-set construction). These are the equivalents
+// here: sequential O(nnz) passes that are pathological for numpy but
+// trivial in C++ (level schedules, .mtx parsing, the golden triangular
+// solve, IC(0)/ILU(0)). Built as a plain shared library, loaded via ctypes.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libsblas_native.so sblas_native.cpp
 
@@ -13,6 +13,7 @@
 #include <cstring>
 #include <cstdio>
 #include <cmath>
+#include <vector>
 
 extern "C" {
 
@@ -121,344 +122,6 @@ void sblas_sptrsv_lower_f64(const int32_t* indptr, const int32_t* indices,
 }
 
 }  // extern "C"
-
-// ---- w-SELL v3 packer (SURVEY.md C5 retiler; see sblas/retile_wsell.py) ----
-//
-// Greedy per row-block round builder. A round is an (8 x 128) tile of up to
-// 8*sub row segments whose next chunk lies within the 2-panel window
-// starting at the round's base panel. Returns the number of rounds written.
-// Outputs must be pre-allocated for the worst case (total chunk count):
-//   val_out  [max_rounds*8*128]  float32
-//   lcol_out [max_rounds*8*128]  int32
-//   wrow_out [max_rounds]        int32
-//   obase_out[max_rounds]        int32
-extern "C" int64_t sblas_pack_wsell_f32(
-    const int32_t* indptr, const int32_t* indices, const float* data,
-    int64_t m, int32_t sub, int32_t nwin, int64_t max_rounds,
-    float* val_out, int32_t* lcol_out, int32_t* wrow_out,
-    int32_t* obase_out) {
-  const int32_t LANES_ = 128;
-  const int32_t SUBL = 8;
-  // sub must divide the lane count and fit the cursor buffers below; a
-  // sub=32 call once smashed the old fixed pos[8*16] stack arrays
-  // (rpb=256 cursors) and segfaulted on the clobbered output pointers.
-  if (sub < 1 || sub > 128 || LANES_ % sub != 0) return -2;
-  const int32_t lps = LANES_ / sub;
-  const int64_t rpb = (int64_t)SUBL * sub;
-  const int64_t nblocks = (m + rpb - 1) / rpb;
-  int64_t nrounds = 0;
-
-  int64_t pos[8 * 128];  // cursors, rpb <= 1024 (sub <= 128)
-  int64_t end[8 * 128];
-
-  for (int64_t blk = 0; blk < nblocks; ++blk) {
-    const int64_t r0 = blk * rpb;
-    const int64_t r1 = (r0 + rpb < m) ? r0 + rpb : m;
-    const int64_t nr = r1 - r0;
-    bool any = false;
-    for (int64_t rl = 0; rl < nr; ++rl) {
-      pos[rl] = indptr[r0 + rl];
-      end[rl] = indptr[r0 + rl + 1];
-      if (pos[rl] < end[rl]) any = true;
-    }
-    if (!any) continue;
-    while (true) {
-      // find smallest pending panel
-      int64_t wsel = -1;
-      for (int64_t rl = 0; rl < nr; ++rl) {
-        if (pos[rl] < end[rl]) {
-          int64_t p = indices[pos[rl]] / LANES_;
-          if (wsel < 0 || p < wsel) wsel = p;
-        }
-      }
-      if (wsel < 0) break;
-      if (nrounds >= max_rounds) return -1;  // caller under-allocated
-      float* vt = val_out + nrounds * SUBL * LANES_;
-      int32_t* ct = lcol_out + nrounds * SUBL * LANES_;
-      for (int64_t i = 0; i < SUBL * LANES_; ++i) { vt[i] = 0.f; ct[i] = 0; }
-      const int64_t hi_panel = wsel + nwin - 1;
-      for (int64_t rl = 0; rl < nr; ++rl) {
-        if (pos[rl] >= end[rl]) continue;
-        int64_t p = indices[pos[rl]] / LANES_;
-        if (p > hi_panel) continue;
-        // take up to lps entries in panel p
-        const int64_t s = rl / sub;
-        const int64_t k = rl % sub;
-        int64_t base = s * LANES_ + k * lps;
-        int64_t taken = 0;
-        while (pos[rl] < end[rl] && taken < lps &&
-               indices[pos[rl]] / LANES_ == p) {
-          vt[base + taken] = data[pos[rl]];
-          ct[base + taken] = indices[pos[rl]] - (int32_t)(wsel * LANES_);
-          ++taken;
-          ++pos[rl];
-        }
-      }
-      wrow_out[nrounds] = (int32_t)wsel;
-      obase_out[nrounds] = (int32_t)blk;
-      ++nrounds;
-    }
-  }
-  return nrounds;
-}
-
-// Total (row, panel, lps) chunk count — the worst-case round count.
-extern "C" int64_t sblas_wsell_chunk_count(
-    const int32_t* indptr, const int32_t* indices, int64_t m, int32_t sub) {
-  const int32_t LANES_ = 128;
-  const int32_t lps = LANES_ / sub;
-  int64_t total = 0;
-  for (int64_t r = 0; r < m; ++r) {
-    int64_t i = indptr[r];
-    const int64_t e = indptr[r + 1];
-    while (i < e) {
-      int64_t p = indices[i] / LANES_;
-      int64_t j = i + 1;
-      while (j < e && indices[j] / LANES_ == p && j - i < lps) ++j;
-      ++total;
-      i = j;
-    }
-  }
-  return total;
-}
-
-#include <algorithm>
-#include <vector>
-
-// ---- SpTRSV level-block round builder (see sblas/ops/kernels/sptrsv_pallas.py)
-//
-// Blocks are 128 renumbered rows (level-padded). Rounds are (8 x 128) tiles:
-// sublane s, lane block k holds row (s*16 + k)'s next chunk if its panel is
-// within the round's 2-panel window. Values are pre-scaled by 1/diag of the
-// row; dependency columns are renumbered via slot_of_row. Returns round
-// count or -1 if max_rounds was too small.
-extern "C" int64_t sblas_pack_trsv_f32(
-    const int32_t* indptr, const int32_t* indices, const double* data,
-    const int32_t* row_of_slot,   // [n_pad] original row per slot or -1
-    const int32_t* slot_of_row,   // [n] slot per original row
-    const double* inv_diag,       // [n] 1/diag per original row
-    int64_t n_pad, int32_t lower, int64_t dense_from_slot, int64_t max_rounds,
-    int32_t win,                  // panels per round window (lcol < win*128)
-    float* val_out, int32_t* lcol_out, int32_t* wrow_out, int32_t* oblk_out,
-    int32_t* final_out, int32_t* bfirst_out) {
-  const int32_t LANES_ = 128;
-  const int32_t SUBL = 8;
-  const int32_t SUBSEG = 16;   // segments per sublane
-  const int32_t lps = LANES_ / SUBSEG;  // 8 slots per row
-  const int64_t nblocks = n_pad / LANES_;
-  int64_t nrounds = 0;
-
-  std::vector<std::pair<int32_t, float>> deps;  // (slot, scaled val)
-  // per row in block: chunk list as (panel, start, len) over deps buffer
-  struct Chunk { int32_t panel; int32_t start; int32_t len; };
-  std::vector<Chunk> chunks[128];
-  std::vector<std::pair<int32_t, float>> rowdeps[128];
-
-  for (int64_t blk = 0; blk < nblocks; ++blk) {
-    bool any = false;
-    size_t cursor[128];
-    for (int32_t lo = 0; lo < 128; ++lo) {
-      chunks[lo].clear();
-      rowdeps[lo].clear();
-      cursor[lo] = 0;
-      const int32_t r = row_of_slot[blk * LANES_ + lo];
-      if (r < 0) continue;
-      // dense-tail blocks (slot >= dense_from_slot): intra-block deps are
-      // handled by the precomputed block inverse, and the diagonal is NOT
-      // folded into the value stream (the inverse solves it).
-      const bool dense_blk = (blk * LANES_ >= dense_from_slot);
-      const double inv = dense_blk ? 1.0 : inv_diag[r];
-      for (int32_t p = indptr[r]; p < indptr[r + 1]; ++p) {
-        const int32_t c = indices[p];
-        const bool off = lower ? (c < r) : (c > r);
-        if (!off) continue;
-        const int32_t cs = slot_of_row[c];
-        if (dense_blk && cs / LANES_ == blk) continue;
-        rowdeps[lo].push_back({cs, (float)(data[p] * inv)});
-      }
-      if (rowdeps[lo].empty()) continue;
-      std::sort(rowdeps[lo].begin(), rowdeps[lo].end(),
-                [](const std::pair<int32_t, float>& a,
-                   const std::pair<int32_t, float>& b) {
-                  return a.first < b.first;
-                });
-      // single-panel chunks of <= lps
-      int32_t i = 0, L = (int32_t)rowdeps[lo].size();
-      while (i < L) {
-        const int32_t p = rowdeps[lo][i].first / LANES_;
-        int32_t j = i + 1;
-        while (j < L && rowdeps[lo][j].first / LANES_ == p && j - i < lps) ++j;
-        chunks[lo].push_back({p, i, j - i});
-        i = j;
-      }
-      any = true;
-    }
-    int64_t first_round_of_block = nrounds;
-    if (!any) {
-      // pure-diagonal block: one empty final round so the block gets solved
-      if (nrounds >= max_rounds) return -1;
-      float* vt = val_out + nrounds * SUBL * LANES_;
-      int32_t* ct = lcol_out + nrounds * SUBL * LANES_;
-      for (int64_t q = 0; q < SUBL * LANES_; ++q) { vt[q] = 0.f; ct[q] = 0; }
-      wrow_out[nrounds] = 0;
-      oblk_out[nrounds] = (int32_t)blk;
-      final_out[nrounds] = 1;
-      bfirst_out[nrounds] = 1;
-      ++nrounds;
-      continue;
-    }
-    while (true) {
-      int64_t wsel = -1;
-      for (int32_t lo = 0; lo < 128; ++lo) {
-        if (cursor[lo] < chunks[lo].size()) {
-          const int64_t p = chunks[lo][cursor[lo]].panel;
-          if (wsel < 0 || p < wsel) wsel = p;
-        }
-      }
-      if (wsel < 0) break;
-      if (nrounds >= max_rounds) return -1;
-      float* vt = val_out + nrounds * SUBL * LANES_;
-      int32_t* ct = lcol_out + nrounds * SUBL * LANES_;
-      for (int64_t q = 0; q < SUBL * LANES_; ++q) { vt[q] = 0.f; ct[q] = 0; }
-      for (int32_t lo = 0; lo < 128; ++lo) {
-        if (cursor[lo] >= chunks[lo].size()) continue;
-        const int32_t s = lo / SUBSEG;
-        const int32_t k = lo % SUBSEG;
-        const int64_t base = (int64_t)s * LANES_ + k * lps;
-        // take as many of the row's consecutive single-panel chunks as fit
-        // the row's lps slots AND the round's win-panel window — wide
-        // windows let a row with one dep per panel fill its slots in one
-        // round instead of one round per panel (the band-factor pathology)
-        int32_t used = 0;
-        while (cursor[lo] < chunks[lo].size()) {
-          const Chunk& ch = chunks[lo][cursor[lo]];
-          if (ch.panel > wsel + win - 1 || used + ch.len > lps) break;
-          for (int32_t t = 0; t < ch.len; ++t) {
-            vt[base + used + t] = rowdeps[lo][ch.start + t].second;
-            ct[base + used + t] = rowdeps[lo][ch.start + t].first
-                                  - (int32_t)(wsel * LANES_);
-          }
-          used += ch.len;
-          ++cursor[lo];
-        }
-      }
-      wrow_out[nrounds] = (int32_t)wsel;
-      oblk_out[nrounds] = (int32_t)blk;
-      final_out[nrounds] = 0;
-      bfirst_out[nrounds] = (nrounds == first_round_of_block) ? 1 : 0;
-      ++nrounds;
-    }
-    final_out[nrounds - 1] = 1;
-  }
-  return nrounds;
-}
-
-// PSEG round builder (see sblas/retile_pseg.py for the layout contract).
-// Inputs are the nnz stream sorted by (block, target-lane, panel); this is
-// the per-block greedy that Python does ~1 us/nnz — here one linear pass.
-// Rounds whose total take is below divert_below are not emitted; their
-// entry indices (into the SORTED stream) go to strag_idx instead.
-// Outputs val/lcol/tsb are (max_rounds*8, 128) row-major; returns the
-// number of rounds, or -1 if max_rounds was too small.
-extern "C" int64_t sblas_pack_pseg_f32(
-    const int32_t* blk_s, const int32_t* tl_s, const int32_t* ts_s,
-    const int32_t* pan_s, const int32_t* col_s, const float* val_s,
-    int64_t nnz, int32_t divert_below, int64_t max_rounds,
-    float* val_out, int32_t* lcol_out, int32_t* tsb_out,
-    int32_t* wrow_out, int32_t* oblk_out,
-    int64_t* strag_idx, int64_t* n_strag_out) {
-  const int32_t LANES_ = 128;
-  const int32_t SUB_ = 8;
-  int64_t nrounds = 0;
-  int64_t nstrag = 0;
-  int64_t lane_lo[129];
-  int64_t heads[128];
-
-  int64_t lo = 0;
-  while (lo < nnz) {
-    const int32_t b = blk_s[lo];
-    int64_t hi = lo;
-    while (hi < nnz && blk_s[hi] == b) ++hi;
-
-    // lane boundaries within [lo, hi): tl_s ascending
-    {
-      int64_t p = lo;
-      for (int32_t l = 0; l < LANES_; ++l) {
-        while (p < hi && tl_s[p] < l) ++p;
-        lane_lo[l] = p;
-      }
-      lane_lo[128] = hi;
-      // heads start at each lane's lo; lane l spans [lane_lo[l], lane_lo[l+1])
-      for (int32_t l = 0; l < LANES_; ++l) heads[l] = lane_lo[l];
-    }
-
-    for (;;) {
-      // w = min panel over active lane heads
-      int32_t w = INT32_MAX;
-      for (int32_t l = 0; l < LANES_; ++l) {
-        if (heads[l] < lane_lo[l + 1]) {
-          const int32_t p = pan_s[heads[l]];
-          if (p < w) w = p;
-        }
-      }
-      if (w == INT32_MAX) break;
-
-      // first pass: counts + total (take up to 8 entries with panel <= w+1)
-      int32_t cnt[128];
-      int64_t total = 0;
-      for (int32_t l = 0; l < LANES_; ++l) {
-        const int64_t h = heads[l];
-        const int64_t stop =
-            (lane_lo[l + 1] < h + SUB_) ? lane_lo[l + 1] : h + SUB_;
-        int32_t c = 0;
-        while (h + c < stop && pan_s[h + c] <= w + 1) ++c;
-        cnt[l] = c;
-        total += c;
-      }
-
-      if (total < (int64_t)divert_below) {
-        for (int32_t l = 0; l < LANES_; ++l) {
-          for (int32_t t = 0; t < cnt[l]; ++t) {
-            if (val_out != nullptr) strag_idx[nstrag] = heads[l] + t;
-            ++nstrag;
-          }
-          heads[l] += cnt[l];
-        }
-        continue;
-      }
-
-      // COUNT-ONLY mode (val_out == nullptr): callers size the output
-      // arrays from a first counting pass instead of the nnz worst case
-      // (a divert=1 hub stream once projected a 157 GiB preallocation).
-      if (val_out != nullptr) {
-        if (nrounds >= max_rounds) return -1;
-        float* vt = val_out + nrounds * SUB_ * LANES_;
-        int32_t* ct = lcol_out + nrounds * SUB_ * LANES_;
-        int32_t* tt = tsb_out + nrounds * SUB_ * LANES_;
-        memset(vt, 0, sizeof(float) * SUB_ * LANES_);
-        memset(ct, 0, sizeof(int32_t) * SUB_ * LANES_);
-        memset(tt, 0, sizeof(int32_t) * SUB_ * LANES_);
-        for (int32_t l = 0; l < LANES_; ++l) {
-          const int64_t h = heads[l];
-          for (int32_t t = 0; t < cnt[l]; ++t) {
-            vt[(int64_t)t * LANES_ + l] = val_s[h + t];
-            ct[(int64_t)t * LANES_ + l] = col_s[h + t] - w * LANES_;
-            tt[(int64_t)t * LANES_ + l] = ts_s[h + t];
-          }
-          heads[l] += cnt[l];
-        }
-        wrow_out[nrounds] = w;
-        oblk_out[nrounds] = b;
-      } else {
-        for (int32_t l = 0; l < LANES_; ++l) heads[l] += cnt[l];
-      }
-      ++nrounds;
-    }
-    lo = hi;
-  }
-  *n_strag_out = nstrag;
-  return nrounds;
-}
 
 // IC(0): incomplete Cholesky on the pattern of tril(A), in place.
 // Input: CSR of tril(A) (columns ascending, diagonal present as the last

@@ -1,14 +1,13 @@
-"""PageRank on the scattered-graph fast path — the PSEG kernel's natural
-workload (power-law adjacency, repeated SpMV).
+"""PageRank on a power-law graph — repeated SpMV over one plan.
 
 Usage pattern demonstrated:
 
 - build the column-stochastic operator M = A^T D^-1 host-side with the
   format toolkit (csr_transpose + a diagonal scale on the nnz stream);
-- one SpmvPlan (PSEG auto-selects for power-law graphs on TPU; here we
-  request it) whose hub relabeling is paid ONCE;
-- the power iteration stays in relabeled space via ``apply_permuted`` —
-  zero permutation gathers per step (DESIGN.md dispatch notes).
+- one ``SpmvPlan`` under ``auto`` (degree buckets with heavy-row splitting
+  for power-law rows), built once;
+- the power iteration runs on the device: one jitted step per iteration
+  with the plan's arrays passed as arguments (``apply_pure``).
 
 Run:  SBLAS_PLATFORM=cpu python examples/pagerank.py [n_nodes]
 """
@@ -31,45 +30,31 @@ def stochastic_transpose(a):
     return sblas.csr_transpose(scaled)
 
 
-def pagerank(a, *, damping=0.85, tol=1e-8, maxiter=200, method="auto",
-             **plan_kw):
-    """Returns (rank vector, iterations). Plain numpy/host loop around a
-    single plan — the per-step permutes are amortized away by iterating in
-    the plan's relabeled space when PSEG is selected."""
+def pagerank(a, *, damping=0.85, tol=1e-8, maxiter=200, method="auto"):
+    """Returns (rank vector, iterations): a host loop around one jitted
+    power-iteration step; only the convergence test reads back."""
+    import jax
     import jax.numpy as jnp
 
     from sblas.ops import SpmvPlan
 
     n = a.shape[0]
-    m_op = stochastic_transpose(a)
-    plan = SpmvPlan(m_op, method, **plan_kw)
-    dangling = (a.row_lengths == 0).astype(np.float64)
+    plan = SpmvPlan(stochastic_transpose(a), method)
+    dangling = jnp.asarray((a.row_lengths == 0).astype(plan.dtype))
 
-    permuted = plan.method == "pseg"
-    if permuted:
-        ps = plan._pallas
-        arrs = plan.device_arrays()
-        rowperm = np.asarray(ps.rowperm)   # y_perm[r] = y[rowperm[r]]
-        colperm = np.asarray(ps.colperm)
+    @jax.jit
+    def step(arrs, r):
+        leak = damping * jnp.dot(dangling, r) / n      # dangling mass
+        r_new = (1.0 - damping) / n + damping * plan.apply_pure(arrs, r) + leak
+        return r_new, jnp.abs(r_new - r).sum()
 
-    r = np.full(n, 1.0 / n, dtype=np.float64)
+    arrs = plan.device_arrays()
+    r = jnp.full(n, 1.0 / n, dtype=plan.dtype)
     for it in range(1, maxiter + 1):
-        if permuted:
-            # M r in relabeled space: input permuted by colperm, output
-            # arrives in rowperm order
-            x_perm = jnp.asarray(r[colperm].astype(np.float32))
-            mr = np.zeros(n, dtype=np.float64)
-            mr[rowperm] = np.asarray(ps.apply_permuted(arrs, x_perm),
-                                    dtype=np.float64)
-        else:
-            mr = np.asarray(plan(r.astype(m_op.dtype)), dtype=np.float64)
-        leak = damping * float(dangling @ r) / n       # dangling mass
-        r_new = (1.0 - damping) / n + damping * mr + leak
-        delta = float(np.abs(r_new - r).sum())
-        r = r_new
-        if delta < tol:
-            return r, it
-    return r, maxiter
+        r, delta = step(arrs, r)
+        if float(delta) < tol:
+            return np.asarray(r, dtype=np.float64), it
+    return np.asarray(r, dtype=np.float64), maxiter
 
 
 def main():
@@ -83,18 +68,10 @@ def main():
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 30000
     g = datasets.powerlaw_graph(n, 12.0, 2.1, seed=0, dtype=np.float32)
-    r, it = pagerank(g, method="auto")
+    r, it = pagerank(g)
     top = np.argsort(-r)[:5]
     print(f"converged in {it} iterations; sum(r) = {r.sum():.6f}")
     print("top nodes:", top.tolist(), [round(float(r[t]), 6) for t in top])
-
-    # cross-check the PSEG permuted-space path against the XLA path on a
-    # web-graph emulation (tiny instances pack at low fill under the
-    # divert=0 policy — round granularity — harmless at this size)
-    gs = datasets.emulate("uk-2002", scale=0.01, dtype=np.float32)
-    r1, _ = pagerank(gs, method="pseg", min_fill=0.01)
-    r2, _ = pagerank(gs, method="bucket")
-    print("pseg-vs-xla max diff:", float(np.abs(r1 - r2).max()))
 
 
 if __name__ == "__main__":

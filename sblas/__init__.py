@@ -1,4 +1,4 @@
-"""sblas-tpu: TPU-native scalable sparse BLAS (SpMV / SpMM / SpTRSV).
+"""sblas: scalable sparse BLAS in JAX (SpMV / SpMM / SpTRSV).
 
 Public API (mirrors the reference's entry points over CSR — SURVEY.md §1/§2,
 BASELINE.json north_star):
@@ -13,9 +13,10 @@ All three accept CSR or CSC and a ``trans=`` flag (op(A) = A^T), matching
 the reference's CSR/CSC surface; e.g. the Cholesky backsolve is
 ``sblas.sptrsv(L, b, trans=True)``.
 
-Matrices are host-side CSR; on first use they are retiled into TPU-friendly
-layouts (sliced-ELL / padded-segment) and cached. Multi-chip execution goes
-through ``sblas.parallel``.
+Matrices are host-side CSR; on first use they are retiled into device
+layouts (ELL / degree buckets / dense blocks / level schedules, chosen from
+the matrix) and cached. Multi-device execution goes through
+``sblas.parallel``.
 """
 
 from .formats import COO, CSR, CSC, coo_to_csr, coo_to_csc, csr_transpose, tril, triu

@@ -4,11 +4,12 @@ Mirrors the capability surface of the reference's format utilities
 (COO->CSR/CSC conversion, sort/dedup, triangular extraction; see SURVEY.md
 C2/C3 -- reference paths unverifiable, empty mount) but is a fresh numpy
 implementation. Index dtype is int32 (sufficient for SuiteSparse-class
-matrices, half the index bandwidth of int64 on the TPU fast path); values are
+matrices, half the index bandwidth of int64 on the device); values are
 float32 or float64.
 
 All containers are immutable-by-convention numpy holders. Device-side layouts
-(sliced-ELL / padded-segment) are built from these by ``sblas.retile``.
+(ELL / degree buckets / dense blocks) are built from these by
+``sblas.retile`` and ``sblas.retile_bsr``.
 """
 
 from __future__ import annotations

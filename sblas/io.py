@@ -177,7 +177,7 @@ def read_mtx_coo(path: Union[str, Path], dtype=np.float64) -> COO:
     row, col, data = _parse_coordinate(body, nnz, field, dtype)
 
     # 0-based or otherwise out-of-range indices must fail loudly, not wrap
-    # through downstream gathers (ADVICE r1, low).
+    # through downstream gathers.
     if nnz and (row.min(initial=0) < 0 or col.min(initial=0) < 0
                 or row.max(initial=-1) >= m or col.max(initial=-1) >= n):
         raise ValueError(

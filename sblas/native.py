@@ -58,29 +58,6 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
     lib.sblas_sptrsv_lower_f64.argtypes = [
         i32p, i32p, f64p, ctypes.c_int64, f64p, f64p, ctypes.c_int,
     ]
-    f32p = ctypes.POINTER(ctypes.c_float)
-    lib.sblas_pack_wsell_f32.restype = ctypes.c_int64
-    lib.sblas_pack_wsell_f32.argtypes = [
-        i32p, i32p, f32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_int64, f32p, i32p, i32p, i32p,
-    ]
-    lib.sblas_wsell_chunk_count.restype = ctypes.c_int64
-    lib.sblas_wsell_chunk_count.argtypes = [i32p, i32p, ctypes.c_int64,
-                                            ctypes.c_int32]
-    lib.sblas_pack_trsv_f32.restype = ctypes.c_int64
-    lib.sblas_pack_trsv_f32.argtypes = [
-        i32p, i32p, f64p, i32p, i32p, f64p,
-        ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int32,
-        f32p, i32p, i32p, i32p, i32p, i32p,
-    ]
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    lib.sblas_pack_pseg_f32.restype = ctypes.c_int64
-    lib.sblas_pack_pseg_f32.argtypes = [
-        i32p, i32p, i32p, i32p, i32p, f32p,
-        ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
-        f32p, i32p, i32p, i32p, i32p, i64p, i64p,
-    ]
     lib.sblas_ic0_f64.restype = ctypes.c_int64
     lib.sblas_ic0_f64.argtypes = [i32p, i32p, f64p, ctypes.c_int64]
     lib.sblas_ilu0_f64.restype = ctypes.c_int64
@@ -176,38 +153,6 @@ def sptrsv_golden_native(indptr, indices, data, b, *, unit_diagonal=False):
     return x
 
 
-def pack_wsell_rounds_f32(indptr, indices, data, m, sub, nwin):
-    """Native w-SELL round builder. Returns (nrounds, val, lcol, wrow, obase)
-    with val/lcol shaped (nrounds*8, 128), or None if no native library."""
-    lib = _build_and_load()
-    if lib is None:
-        return None
-    indptr = np.ascontiguousarray(indptr, dtype=np.int32)
-    indices = np.ascontiguousarray(indices, dtype=np.int32)
-    data = np.ascontiguousarray(data, dtype=np.float32)
-    max_rounds = lib.sblas_wsell_chunk_count(
-        _as_i32p(indptr), _as_i32p(indices), m, sub) + 1
-    val = np.empty((max_rounds * 8, 128), dtype=np.float32)
-    lcol = np.empty((max_rounds * 8, 128), dtype=np.int32)
-    wrow = np.empty(max_rounds, dtype=np.int32)
-    obase = np.empty(max_rounds, dtype=np.int32)
-    import ctypes as _ct
-
-    f32p = _ct.POINTER(_ct.c_float)
-    n = lib.sblas_pack_wsell_f32(
-        _as_i32p(indptr), _as_i32p(indices),
-        data.ctypes.data_as(f32p), m, sub, nwin, max_rounds,
-        val.ctypes.data_as(f32p), _as_i32p(lcol), _as_i32p(wrow),
-        _as_i32p(obase),
-    )
-    if n == -2:
-        raise ValueError(f"w-SELL packer: unsupported sub={sub} "
-                         "(must divide 128)")
-    if n < 0:
-        raise RuntimeError("w-SELL packer under-allocated (bug)")
-    return int(n), val[: n * 8], lcol[: n * 8], wrow[:n], obase[:n]
-
-
 def ic0_inplace(indptr, indices, data64) -> int:
     """Native IC(0) over the tril(A) CSR values (sorted cols, diag last in
     each row). Returns 0, or i+1 on a non-positive pivot at row i.
@@ -237,96 +182,3 @@ def ilu0_inplace(indptr, indices, data64) -> int:
                                   _as_f64p(data64), len(indptr) - 1))
 
 
-def pack_pseg_rounds(blk_s, tl_s, ts_s, pan_s, col_s, val_s, divert_below):
-    """Native PSEG round builder over the (block, lane, panel)-sorted nnz
-    stream. Returns (R, val, lcol, tsb, wrow, oblk, strag_idx) or None.
-    val/lcol/tsb are (R*8, 128); strag_idx indexes the sorted stream."""
-    lib = _build_and_load()
-    if lib is None:
-        return None
-    import ctypes as _ct
-
-    nnz = len(val_s)
-    blk_s = np.ascontiguousarray(blk_s, dtype=np.int32)
-    tl_s = np.ascontiguousarray(tl_s, dtype=np.int32)
-    ts_s = np.ascontiguousarray(ts_s, dtype=np.int32)
-    pan_s = np.ascontiguousarray(pan_s, dtype=np.int32)
-    col_s = np.ascontiguousarray(col_s, dtype=np.int32)
-    val_s = np.ascontiguousarray(val_s, dtype=np.float32)
-    f32p = _ct.POINTER(_ct.c_float)
-    i64p = _ct.POINTER(_ct.c_int64)
-    n_strag = np.zeros(1, dtype=np.int64)
-    # pass 1 — COUNT ONLY (null outputs): the worst case is one round per
-    # nnz (divert=1), which once projected a 157 GiB preallocation on a
-    # 85M-nnz hub stream; the counting pass is the same O(nnz) sweep
-    nullf = _ct.cast(None, f32p)
-    nulli = _ct.cast(None, _ct.POINTER(_ct.c_int32))
-    nulll = _ct.cast(None, i64p)
-    max_rounds = lib.sblas_pack_pseg_f32(
-        _as_i32p(blk_s), _as_i32p(tl_s), _as_i32p(ts_s), _as_i32p(pan_s),
-        _as_i32p(col_s), val_s.ctypes.data_as(f32p),
-        nnz, int(divert_below), 0,
-        nullf, nulli, nulli, nulli, nulli,
-        nulll, n_strag.ctypes.data_as(i64p),
-    )
-    val = np.empty((max_rounds * 8, 128), dtype=np.float32)
-    lcol = np.empty((max_rounds * 8, 128), dtype=np.int32)
-    tsb = np.empty((max_rounds * 8, 128), dtype=np.int32)
-    wrow = np.empty(max_rounds, dtype=np.int32)
-    oblk = np.empty(max_rounds, dtype=np.int32)
-    strag = np.empty(max(int(n_strag[0]), 1), dtype=np.int64)
-    R = lib.sblas_pack_pseg_f32(
-        _as_i32p(blk_s), _as_i32p(tl_s), _as_i32p(ts_s), _as_i32p(pan_s),
-        _as_i32p(col_s), val_s.ctypes.data_as(f32p),
-        nnz, int(divert_below), max_rounds,
-        val.ctypes.data_as(f32p), _as_i32p(lcol), _as_i32p(tsb),
-        _as_i32p(wrow), _as_i32p(oblk),
-        strag.ctypes.data_as(i64p), n_strag.ctypes.data_as(i64p),
-    )
-    if R < 0 or R != max_rounds:
-        raise RuntimeError("PSEG packer count/fill mismatch (bug)")
-    ns = int(n_strag[0])
-    return (int(R), val[: R * 8], lcol[: R * 8], tsb[: R * 8],
-            wrow[:R], oblk[:R], strag[:ns])
-
-
-def pack_trsv_rounds(indptr, indices, data, row_of_slot, slot_of_row,
-                     inv_diag, n_pad, lower, dense_from_slot=None,
-                     win=2):
-    """Native SpTRSV round builder (see sptrsv_pallas.build_layout).
-    Returns (R, val, lcol, wrow, oblk, final, bfirst) or None."""
-    lib = _build_and_load()
-    if lib is None:
-        return None
-    import ctypes as _ct
-
-    indptr = np.ascontiguousarray(indptr, dtype=np.int32)
-    indices = np.ascontiguousarray(indices, dtype=np.int32)
-    data = np.ascontiguousarray(data, dtype=np.float64)
-    row_of_slot = np.ascontiguousarray(row_of_slot, dtype=np.int32)
-    slot_of_row = np.ascontiguousarray(slot_of_row, dtype=np.int32)
-    inv_diag = np.ascontiguousarray(inv_diag, dtype=np.float64)
-    # worst case: total chunks (lps=8) + one per block
-    max_rounds = lib.sblas_wsell_chunk_count(
-        _as_i32p(indptr), _as_i32p(indices), len(indptr) - 1, 16
-    ) + n_pad // 128 + 1
-    f32p = _ct.POINTER(_ct.c_float)
-    val = np.empty((max_rounds * 8, 128), dtype=np.float32)
-    lcol = np.empty((max_rounds * 8, 128), dtype=np.int32)
-    wrow = np.empty(max_rounds, dtype=np.int32)
-    oblk = np.empty(max_rounds, dtype=np.int32)
-    final = np.empty(max_rounds, dtype=np.int32)
-    bfirst = np.empty(max_rounds, dtype=np.int32)
-    if dense_from_slot is None:
-        dense_from_slot = n_pad
-    R = lib.sblas_pack_trsv_f32(
-        _as_i32p(indptr), _as_i32p(indices), _as_f64p(data),
-        _as_i32p(row_of_slot), _as_i32p(slot_of_row), _as_f64p(inv_diag),
-        n_pad, int(lower), int(dense_from_slot), max_rounds, int(win),
-        val.ctypes.data_as(f32p), _as_i32p(lcol), _as_i32p(wrow),
-        _as_i32p(oblk), _as_i32p(final), _as_i32p(bfirst),
-    )
-    if R < 0:
-        raise RuntimeError("trsv packer under-allocated (bug)")
-    return (int(R), val[: R * 8], lcol[: R * 8], wrow[:R], oblk[:R],
-            final[:R], bfirst[:R])

@@ -17,6 +17,9 @@ from __future__ import annotations
 
 import weakref
 
+import jax.numpy as jnp
+from jax import lax
+
 from ..formats import CSR, CSC, csr_transpose
 
 # source matrix -> {"csr": CSR of A, "csr_T": CSR of A^T}
@@ -52,3 +55,16 @@ def _derived(src, key: str, build) -> CSR:
     if key not in cache:
         cache[key] = build()
     return cache[key]
+
+
+def ell_dot(val, col, x):
+    """Row sums of ``val * x[col]`` for one ELL slab: (r, w) ``val``/``col``
+    against ``x`` of shape (n,) or (n, k), giving (r,) or (r, k).
+
+    The K-wide form is a contraction; its precision is pinned to HIGHEST
+    because a float32 dot on a GPU may otherwise run in TF32 (about three
+    decimal digits)."""
+    if x.ndim == 1:
+        return jnp.sum(val * x[col], axis=1)
+    return jnp.einsum("rw,rwk->rk", val, x[col],
+                      precision=lax.Precision.HIGHEST)

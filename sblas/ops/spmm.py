@@ -1,273 +1,91 @@
 """SpMM: Y = alpha * A @ X + beta * Y, dense row-major X of shape (n, k)
 (SURVEY.md C6; BASELINE config #2 uses K = 8 / 32).
 
-The ELL gather X[col] materializes (rows, width, k) floats, so execution is
-chunked over row blocks with ``lax.map`` to bound the intermediate at ~32 MB.
+Methods: ``'ell'``, ``'bucket'`` and ``'bsr'`` as in SpMV, with the
+per-row dot widened to K columns, and ``'spmv_passes'`` (K SpMV passes
+over one shared SpMV plan). ``'auto'`` chooses from the matrix
+(:meth:`SpmmPlan._pick`): dense-block BSR when the touched 128x128 blocks
+are dense enough and fit the device, else ELL or buckets by row-degree
+skew.
+
+The ELL gather X[col] materializes (rows, width, k) values, so execution is
+chunked over row blocks with ``lax.map`` to bound that intermediate at a
+sixteenth of the device's memory (256 MiB where the platform reports no
+limit).
 Arithmetic intensity is K times SpMV's, so K=32 leaves the pure
-bandwidth-bound regime (SURVEY.md §3.2).
+bandwidth-bound regime (SURVEY.md §3.2). Every float32 contraction runs at
+``Precision.HIGHEST`` (see :func:`sblas.ops.common.ell_dot`).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 
 from ..formats import CSR
 from ..retile import to_ell, to_bucket_ell
 from ..retile_bsr import pack_bsr, bsr_stats
-from .spmv import _PLAN_CACHE
+from .common import ell_dot
+from .spmv import _PLAN_CACHE, SpmvPlan, _epilogue
+
+METHODS = ("ell", "bucket", "bsr", "spmv_passes")
+
+# block density above which the dense-block route beats a gather route
+_BSR_MIN_DENSITY = 0.15
 
 
 def _round_up(x, m):
     return ((x + m - 1) // m) * m
 
 
-# kres-PSEG vs k-SpMV-passes decision threshold on the BYTES-MODEL ratio
-# kres_bytes / (k * spmv_pass_bytes). Calibrated against the committed r9
-# suite rows (e34): kres wins wall-clock iff its bytes ratio is below the
-# kres/spmv effective-RATE ratio, which measures 0.27-0.30 when kres is
-# gather-issue-bound (mid graphs: uk@0.05 ratio 0.205 -> 0.70x passes,
-# twitter7@0.02 ratio 0.175 -> 0.66x) and 0.61 when kres is DMA-bound
-# (powerlaw-1M-102M ratio 1.000 -> measured 1.65x passes, i.e. a LOSS the
-# r9 suite committed silently — VERDICT r3 weak #1). 0.30 sits at the
-# gather-bound rate floor, so every predicted win is real.
-_KRES_PASSES_CUT = 0.30
-
-
-@functools.partial(jax.jit, static_argnames=("m", "blk", "with_y"))
-def _ell_spmm(val, col, x, alpha, beta, y, m, blk, with_y):
+def _ell_rows(val, col, x, blk):
+    """ell_dot over row blocks of ``blk`` rows (bounds the gather)."""
     mp = val.shape[0]
-    nblk = mp // blk
+    if blk >= mp:
+        return ell_dot(val, col, x)
 
     def f(i):
         v = lax.dynamic_slice_in_dim(val, i * blk, blk)
         c = lax.dynamic_slice_in_dim(col, i * blk, blk)
-        return jnp.einsum("rw,rwk->rk", v, x[c])
+        return ell_dot(v, c, x)
 
-    out = lax.map(f, jnp.arange(nblk)).reshape(mp, x.shape[1])[:m]
-    out = alpha.astype(out.dtype) * out
-    if with_y:
-        out = out + beta.astype(out.dtype) * y
-    return out
-
-
-@functools.partial(jax.jit, static_argnames=("m", "blks", "with_y"))
-def _bucket_spmm(bucket_arrays, perm, x, alpha, beta, y, m, blks, with_y):
-    partials = []
-    for (val, col), blk in zip(bucket_arrays, blks):
-        mp = val.shape[0]
-        if blk >= mp:
-            partials.append(jnp.einsum("rw,rwk->rk", val, x[col]))
-        else:
-            def f(i, val=val, col=col, blk=blk):
-                v = lax.dynamic_slice_in_dim(val, i * blk, blk)
-                c = lax.dynamic_slice_in_dim(col, i * blk, blk)
-                return jnp.einsum("rw,rwk->rk", v, x[c])
-
-            partials.append(
-                lax.map(f, jnp.arange(mp // blk)).reshape(mp, x.shape[1])
-            )
-    flat = jnp.concatenate(partials)
-    out = jnp.zeros((m + 1, x.shape[1]), dtype=flat.dtype).at[perm].add(flat)[:m]
-    out = alpha.astype(out.dtype) * out
-    if with_y:
-        out = out + beta.astype(out.dtype) * y
-    return out
+    return lax.map(f, jnp.arange(mp // blk)).reshape(mp, x.shape[1])
 
 
 class SpmmPlan:
     """Retiled device-resident SpMM executor for one CSR matrix."""
 
-    # one-line provenance of the auto route decision, carried into bench
-    # records so a route that loses to its own bound can't land silently
-    # again (VERDICT r3 weak #1). None = explicit method or XLA heuristic.
-    route_reason = None
-
     def __init__(self, a, method: str = "auto", *,
-                 max_width: int = 2048, intermediate_mb: int = 32,
-                 value_dtype=None, k_hint: int | None = None,
-                 kres: bool | None = None, spmv_method: str = "auto"):
+                 max_width: int = 2048, intermediate_mb: int | None = None,
+                 k_hint: int | None = None):
+        from ..utils.backend import device_bytes_limit
         from .common import as_csr
 
         a = as_csr(a)
-        self._value_dtype = value_dtype  # bf16 value stream (pallas paths)
         self.shape = a.shape
         self.dtype = a.dtype
         self.nnz = a.nnz
-        self._intermediate = intermediate_mb * (1 << 20)
-        auto = method == "auto"
-        if auto:
-            method = self._pick(a, k_hint)
-        # pallas-family plans keep the CSR so call-time VMEM/K limits can
-        # fall back to an XLA plan instead of crashing (per-K compiles mean
-        # some limits are only knowable at call time).
-        self._csr = a if method in ("pallas", "pseg", "bsr_pallas",
-                                    "bsr_pallas_t") else None
-        self._fb = {}   # per-k fallback plans (keyed by padded k)
-        if method == "spmv_passes":
-            # k SpMV passes sharing ONE SpmvPlan: each column re-streams the
-            # schedule, but every column rides the proven SpMV fast path.
-            # e29 measured this as the gather-SpMM frontier on v5e: every
-            # single-pass gather kernel pays k lane-gathers per nnz anyway
-            # (one (8,128) gather issue fetches values for ONE x plane), so
-            # k DMA-bound passes (93.5% of STREAM by their own byte model)
-            # beat the issue-bound w-SELL SpMM kernel (10.6x SpMV wall
-            # clock) and tie PSEG (7.9x) on band-local scattered matrices.
-            self._init_spmv_passes(a, value_dtype, k_hint,
-                                   spmv_method=spmv_method)
-            return
-        if method == "pallas_ds":
-            # f64-class SpMM = k double-single SpMV passes (opt-in, same
-            # error model as spmv pallas_ds: ~max_deg * 2^-48, not IEEE
-            # f64 — the strict-f64 XLA paths remain the auto default).
-            # One jitted pass per column over the shared two-plane w-SELL
-            # layout; numpy f64 at the boundary (see spmv_wsell_ds).
-            from .spmv import SpmvPlan
-
-            self._spmv = SpmvPlan(a, "pallas_ds")
-            self.method = "pallas_ds"
-            m, n = a.shape
-            sched = self._spmv.bytes_per_iter - (n + m) * 8
-            self.bytes_per_iter_nx = (k_hint or 8) * sched
-            return
-        if method == "bsr_pallas_t" and auto:
-            # auto chain: transposed dense-block BSR (DMA-roofline; e13b)
-            # -> (rows,K) BSR -> w-SELL -> PSEG (scattered) -> XLA
-            try:
-                from .kernels.spmm_bsr_pallas import PallasSpmmBsrT
-
-                # k-aware density cutoff (e30, band1500-100K): dense blocks
-                # stream ONCE for all k RHS (4/density B/nnz) while passes
-                # pay k * ~6/fill B/nnz, so the economic threshold falls
-                # with k. Measured at density 0.034 / fill 0.425: BSR-T
-                # beats passes 1707 vs 2021 us at k=8 and 1939 vs 8234 us
-                # at k=32 (the old k-blind 0.04 cutoff refused both).
-                # 0.53 is the measured rate ratio (dense runs 745 GB/s pure
-                # streams vs passes' ~630 effective incl. per-pass x/y).
-                min_d = 0.04
-                st = bsr_stats(a, br=128, bc=128)
-                # block-bytes guard: v5e HBM is 16 GiB; fem-band-1M's 12.1
-                # GiB block plan fits alongside Xt/Yt, anything bigger
-                # cannot (falls through to spmv_passes)
-                if st["density"] < 0.04 and st["bytes"] <= 13 << 30:
-                    from ..retile_wsell import estimate_rounds, pick_sub
-                    from ..retile_wsell import SUBLANES as _SL, LANES as _LN
-
-                    fill_est = a.nnz / max(
-                        estimate_rounds(a, pick_sub(a)) * _SL * _LN, 1)
-                    min_d = max(0.53 * fill_est / (k_hint or 8), 0.008)
-                self._pallas = PallasSpmmBsrT(a, value_dtype=value_dtype,
-                                              k_hint=k_hint or 8,
-                                              min_density=min_d)
-                self.method = "bsr_pallas_t"
-                self.bytes_per_iter_nx = self._pallas.bytes_per_iter
-                self.route_reason = (
-                    f"block density {st['density']:.4f} >= k-aware cutoff "
-                    f"{min_d:.4f} -> bsr_pallas_t")
-                return
-            except ValueError:
-                method = "bsr_pallas"
-        if method == "bsr_pallas" and auto:
-            try:
-                from .kernels.spmm_bsr_pallas import PallasSpmmBsr
-
-                self._pallas = PallasSpmmBsr(a, value_dtype=value_dtype)
-                self.method = "bsr_pallas"
-                self.bytes_per_iter_nx = self._pallas.bytes_per_iter
-                return
-            except ValueError:
-                method = "pallas"
-        if method == "pallas" and auto:
-            # Past the dense-block paths, route by what SpMV auto picks
-            # (e29, band1500-100K, wall-clock): w-SELL-eligible matrices
-            # run k SpMV passes (2.16 ms) — the w-SELL SpMM kernel is
-            # issue-bound at k gathers + k tiny dots per group (2.66 ms,
-            # 10.6x one SpMV) and is never the winner, so it is explicit-
-            # only now; scattered graphs keep the k-resident PSEG SpMM
-            # (5.7x one PSEG SpMV on uk-2002@0.05 — sub-k, beats passes).
-            from ..retile_wsell import (estimate_rounds, pick_sub,
-                                        SUBLANES, LANES)
-            from .spmv import SpmvPlan
-
-            sp = None
-            fill_est = a.nnz / max(
-                estimate_rounds(a, pick_sub(a)) * SUBLANES * LANES, 1)
-            if fill_est >= 0.2:   # cheap probe: skip the SpMV pack when
-                try:              # w-SELL would shatter (graphs)
-                    sp = SpmvPlan(a, "auto", value_dtype=value_dtype)
-                except (ValueError, RuntimeError):
-                    sp = None
-            if sp is not None and sp.method in ("pallas", "rcm"):
-                self._init_spmv_passes(a, value_dtype, k_hint, plan=sp)
-                self.route_reason = (
-                    f"w-SELL fill probe {fill_est:.2f} >= 0.2 and spmv auto "
-                    f"= {sp.method} -> spmv_passes (e29 frontier)")
-                return
-            method = "pseg"
-        if method == "pseg":
-            from .kernels.spmm_pseg import PallasSpmmScattered
-
-            try:
-                self._pallas = PallasSpmmScattered(a, value_dtype=value_dtype,
-                                                   k_hint=k_hint, kres=kres)
-                self.method = "pseg"
-                self.bytes_per_iter_nx = self._pallas.bytes_per_iter
-                if auto and kres is None:
-                    # scale-aware route pick (VERDICT r3 item 2): compare
-                    # the PSEG plan's own bytes model against k SpMV passes
-                    # priced from the SAME pack (schedule stream + x + y per
-                    # pass). At mid scale kres streams the schedule once for
-                    # kc RHS (ratio ~0.18-0.21, wins); at 1M rows the Xt
-                    # re-staging term degenerates the model to ~k full
-                    # passes (powerlaw-1M ratio 1.000) and the measured
-                    # kernel loses 1.65-1.89x to passes.
-                    k_full = k_hint or 8
-                    w = self._pallas.layout
-                    vsz = self._pallas.value_dtype.itemsize
-                    sched = w.bytes_per_iter - w.val.size * (4 - vsz)
-                    m, n = a.shape
-                    passes_bytes = k_full * (sched + (m + n) * a.data.itemsize)
-                    ratio = self._pallas.bytes_per_iter / max(passes_bytes, 1)
-                    if ratio >= _KRES_PASSES_CUT:
-                        self._pallas = None
-                        self._init_spmv_passes(a, value_dtype, k_hint)
-                        self.route_reason = (
-                            f"pseg bytes ratio {ratio:.3f} >= "
-                            f"{_KRES_PASSES_CUT} of k={k_full} spmv passes"
-                            " -> spmv_passes")
-                        return
-                    self.route_reason = (
-                        f"pseg bytes ratio {ratio:.3f} < {_KRES_PASSES_CUT}"
-                        f" of k={k_full} spmv passes -> kres pseg")
-                return
-            except ValueError:
-                if not auto:
-                    raise
-                # a pseg SpMM build failure (fill / SMEM-cap / regroup
-                # limits) must not dead-end in the XLA gather paths (~1
-                # GB/s at graph scale): k passes over whatever Pallas
-                # route SpMV auto finds comes first (VERDICT r4 item 2's
-                # "routing shouldn't depend on catching a failure late").
-                from .spmv import SpmvPlan
-
-                try:
-                    sp = SpmvPlan(a, "auto", value_dtype=value_dtype)
-                except (ValueError, RuntimeError):
-                    sp = None
-                if sp is not None and sp.method in ("pallas", "pseg", "rcm"):
-                    self._init_spmv_passes(a, value_dtype, k_hint, plan=sp)
-                    self.route_reason = (
-                        "pseg SpMM build failed -> spmv_passes over "
-                        f"spmv[{sp.method}]")
-                    return
-                method = self._xla_heuristic(a)
+        if intermediate_mb is None:
+            limit = device_bytes_limit()
+            self._intermediate = limit // 16 if limit else 256 << 20
+        else:
+            self._intermediate = intermediate_mb << 20
+        if method == "auto":
+            method = self._pick(a)
+        if method not in METHODS:
+            raise ValueError(f"unknown spmm method {method!r}; "
+                             f"choose from {METHODS}")
         self.method = method
 
-        if method == "ell":
+        if method == "spmv_passes":
+            # k SpMV passes sharing ONE SpmvPlan: each column re-streams the
+            # matrix, so the model is k x the SpMV schedule stream
+            self._spmv = SpmvPlan(a, "auto")
+            sched = self._spmv.bytes_per_iter - (
+                (a.shape[0] + a.shape[1]) * a.data.itemsize)
+            self.bytes_per_iter_nx = (k_hint or 8) * sched
+        elif method == "ell":
             ell = to_ell(a)
             self._val = jnp.asarray(ell.val)
             self._col = jnp.asarray(ell.col)
@@ -283,66 +101,28 @@ class SpmmPlan:
             self.bytes_per_iter_nx = sum(
                 b.col.size for b in be.buckets
             ) * (a.data.itemsize + 4)
-        elif method == "bsr":
+        else:
             bsr = pack_bsr(a)
             self._blocks = jnp.asarray(bsr.blocks)
             self._brow = jnp.asarray(bsr.brow)
             self._bcol = jnp.asarray(bsr.bcol)
             self._bsr_meta = bsr
             self.bytes_per_iter_nx = bsr.bytes_per_iter
-        elif method == "pallas":
-            from .kernels.spmm_pallas import PallasSpmm
-
-            self._pallas = PallasSpmm(a, value_dtype=value_dtype,
-                                      k_hint=k_hint or 8)
-            self.bytes_per_iter_nx = self._pallas.bytes_per_iter
-        elif method == "bsr_pallas":
-            from .kernels.spmm_bsr_pallas import PallasSpmmBsr
-
-            self._pallas = PallasSpmmBsr(a, value_dtype=value_dtype)
-            self.bytes_per_iter_nx = self._pallas.bytes_per_iter
-        elif method == "bsr_pallas_t":
-            from .kernels.spmm_bsr_pallas import PallasSpmmBsrT
-
-            self._pallas = PallasSpmmBsrT(a, value_dtype=value_dtype,
-                                          k_hint=k_hint or 8)
-            self.bytes_per_iter_nx = self._pallas.bytes_per_iter
-        else:
-            raise ValueError(f"unknown spmm method {method!r}")
-
-    def _init_spmv_passes(self, a, value_dtype, k_hint, plan=None,
-                          spmv_method: str = "auto"):
-        from .spmv import SpmvPlan
-
-        self._spmv = plan if plan is not None else SpmvPlan(
-            a, spmv_method, value_dtype=value_dtype)
-        self.method = "spmv_passes"
-        sched = self._spmv.bytes_per_iter - (
-            (a.shape[0] + a.shape[1]) * a.data.itemsize)
-        self.bytes_per_iter_nx = (k_hint or 8) * sched
+        self._jit_call = jax.jit(self._call_pure)
 
     @staticmethod
-    def _xla_heuristic(a: CSR) -> str:
-        deg = a.row_lengths
-        mx = int(deg.max(initial=0))
-        mean = float(deg.mean()) if a.shape[0] else 0.0
+    def _pick(a: CSR) -> str:
+        """Dense blocks when they are dense enough and take at most a
+        quarter of the device's memory; else the SpMV choice (ELL or
+        degree buckets)."""
+        from ..utils.backend import device_bytes_limit
+
         stats = bsr_stats(a)
-        if stats["density"] > 0.15 and stats["bytes"] < 4 << 30:
+        limit = device_bytes_limit()
+        fits = limit is None or stats["bytes"] <= limit // 4
+        if stats["density"] > _BSR_MIN_DENSITY and fits:
             return "bsr"
-        return "ell" if mx <= 4 * max(mean, 1.0) else "bucket"
-
-    @staticmethod
-    def _pick(a: CSR, k_hint: int | None = None) -> str:
-        from ..utils.backend import on_cpu
-
-        if a.dtype != np.float64 and not on_cpu():
-            # the transposed kernel streams ~2 MB Xt column slices when Xt
-            # does not fit VMEM whole (fem-band-1M: the old shortcut to the
-            # (rows, K) kernel dead-ended in the 569 ms XLA ell fallback),
-            # so it is the first choice at every size; the auto chain in
-            # __init__ falls through on construction failure
-            return "bsr_pallas_t"
-        return SpmmPlan._xla_heuristic(a)
+        return SpmvPlan._pick(a)
 
     def device_arrays(self):
         if self.method == "bsr":
@@ -352,112 +132,42 @@ class SpmmPlan:
             return {"val": self._val, "col": self._col}
         if self.method == "bucket":
             return {"buckets": self._buckets, "perm": self._perm}
-        if self.method in ("spmv_passes", "pallas_ds"):
-            return self._spmv.device_arrays()
-        return self._pallas.device_arrays()
-
-    def apply_planes(self, arrs, xh, xl):
-        """pallas_ds jittable core: (n, k) f32 hi/lo planes of X in ->
-        ((m, k), (m, k)) hi/lo planes of Y out."""
-        ds = self._spmv._pallas
-        cols = [ds.apply_pure(arrs, xh[:, j], xl[:, j])
-                for j in range(xh.shape[1])]
-        return (jnp.stack([c[0] for c in cols], axis=1),
-                jnp.stack([c[1] for c in cols], axis=1))
-
-    def apply_permuted(self, arrs, x_perm):
-        """Permuted-space Y = A @ X for the scattered routes (pseg, and
-        spmv_passes over a pseg SpMV): iterative users keep X/Y in
-        hub-relabeled space and amortize the two gathers outside the loop,
-        the same precedent as SpmvPlan.apply_permuted."""
-        if self.method == "pseg":
-            return self._pallas.apply_permuted(arrs, x_perm)
-        if self.method == "spmv_passes" and self._spmv.method == "pseg":
-            cols = [self._spmv.apply_permuted(arrs, x_perm[:, j])
-                    for j in range(x_perm.shape[1])]
-            return jnp.stack(cols, axis=1)
-        raise ValueError(f"method {self.method!r} has no permuted space")
+        return self._spmv.device_arrays()
 
     def apply_pure(self, arrs, x):
         """Y = A @ X with arrays passed explicitly (jit-argument safe)."""
         m = self.shape[0]
-        if self.method == "pallas_ds":
-            raise ValueError(
-                "pallas_ds carries X as two f32 planes; use "
-                "plan.apply_planes(arrs, xh, xl) or the numpy-f64 __call__")
+        k = x.shape[1]
         if self.method == "ell":
-            val, col = arrs["val"], arrs["col"]
-            mp = val.shape[0]
-            k = x.shape[1]
-            blk = self._blk(self._width, k, x.dtype.itemsize, mp)
-            while mp % blk:
-                blk -= 8
-
-            def f(i):
-                v = lax.dynamic_slice_in_dim(val, i * blk, blk)
-                c = lax.dynamic_slice_in_dim(col, i * blk, blk)
-                return jnp.einsum("rw,rwk->rk", v, x[c])
-
-            return lax.map(f, jnp.arange(mp // blk)).reshape(mp, k)[:m]
+            blk = self._blk(self._width, k, x.dtype.itemsize,
+                            arrs["val"].shape[0])
+            return _ell_rows(arrs["val"], arrs["col"], x, blk)[:m]
         if self.method == "bucket":
-            k = x.shape[1]
-            partials = []
-            for (val, col), w in zip(arrs["buckets"], self._bucket_widths):
-                mp = val.shape[0]
-                blk = self._blk(w, k, x.dtype.itemsize, mp)
-                if blk >= mp:
-                    partials.append(jnp.einsum("rw,rwk->rk", val, x[col]))
-                else:
-                    def f(i, val=val, col=col, blk=blk):
-                        v = lax.dynamic_slice_in_dim(val, i * blk, blk)
-                        c = lax.dynamic_slice_in_dim(col, i * blk, blk)
-                        return jnp.einsum("rw,rwk->rk", v, x[c])
-
-                    partials.append(
-                        lax.map(f, jnp.arange(mp // blk)).reshape(mp, k)
-                    )
-            flat = jnp.concatenate(partials)
+            flat = jnp.concatenate([
+                _ell_rows(val, col, x,
+                          self._blk(w, k, x.dtype.itemsize, val.shape[0]))
+                for (val, col), w in zip(arrs["buckets"],
+                                         self._bucket_widths)])
             return jnp.zeros((m + 1, k),
                              dtype=flat.dtype).at[arrs["perm"]].add(flat)[:m]
         if self.method == "spmv_passes":
-            if self._spmv.method == "pseg":
-                # hoist the hub-relabel permutes OUTSIDE the k-pass loop:
-                # one (n, k) gather in, one (m, k) gather out, instead of
-                # 2k single-column XLA gathers (~1 GB/s on TPU — at 1M rows
-                # two per pass would rival the SpMV kernel itself)
-                xp = x[arrs["colperm"], :]
-                cols = [self._spmv.apply_permuted(arrs, xp[:, j])
-                        for j in range(x.shape[1])]
-                return jnp.stack(cols, axis=1)[arrs["rowinv"], :]
-            cols = [self._spmv.apply_pure(arrs, x[:, j])
-                    for j in range(x.shape[1])]
+            cols = [self._spmv.apply_pure(arrs, x[:, j]) for j in range(k)]
             return jnp.stack(cols, axis=1)
-        if self.method in ("pallas", "pseg", "bsr_pallas", "bsr_pallas_t"):
-            return self._pallas.apply_pure(arrs, x)
         meta = self._bsr_meta
         pad = meta.num_bcols * meta.bc - self.shape[1]
-        x3d = jnp.pad(x, ((0, pad), (0, 0))).reshape(
-            meta.num_bcols, meta.bc, x.shape[1]
-        )
-        xg = x3d[arrs["bcol"]]
-        partial = jnp.einsum("bij,bjk->bik", arrs["blocks"], xg)
+        x3d = jnp.pad(x, ((0, pad), (0, 0))).reshape(meta.num_bcols, meta.bc, k)
+        partial = jnp.einsum("bij,bjk->bik", arrs["blocks"], x3d[arrs["bcol"]],
+                             precision=lax.Precision.HIGHEST)
         y = jax.ops.segment_sum(partial, arrs["brow"],
                                 num_segments=meta.num_brows)
-        return y.reshape(-1, x.shape[1])[:m]
+        return y.reshape(-1, k)[:m]
 
     def apply_traced(self, x):
-        """Pure Y = A @ X for use inside jit (bsr method)."""
-        m = self.shape[0]
-        meta = self._bsr_meta
-        pad = meta.num_bcols * meta.bc - self.shape[1]
-        x3d = jnp.pad(x, ((0, pad), (0, 0))).reshape(
-            meta.num_bcols, meta.bc, x.shape[1]
-        )
-        xg = x3d[self._bcol]                           # (nb, bc, k)
-        partial = jnp.einsum("bij,bjk->bik", self._blocks, xg)
-        y = jax.ops.segment_sum(partial, self._brow,
-                                num_segments=meta.num_brows)
-        return y.reshape(-1, x.shape[1])[:m]
+        """Pure Y = A @ X inside jit, closing over the plan's arrays."""
+        return self.apply_pure(self.device_arrays(), x)
+
+    def _call_pure(self, arrs, x, alpha, beta, y):
+        return _epilogue(self.apply_pure(arrs, x), alpha, beta, y)
 
     def _blk(self, width: int, k: int, itemsize: int, mp: int) -> int:
         per_row = max(width * k * itemsize, 1)
@@ -468,145 +178,17 @@ class SpmmPlan:
         return max(blk, 8)
 
     def __call__(self, x, alpha: float = 1.0, beta: float = 0.0, y=None):
-        m, n = self.shape
-        if self.method == "pallas_ds":
-            # numpy f64 boundary: jnp.asarray would silently downcast f64
-            # to f32 under the default x64-off config (see spmv_wsell_ds)
-            x = np.asarray(x, dtype=np.float64)
-            if x.ndim != 2 or x.shape[0] != n:
-                raise ValueError(f"X must have shape ({n}, k), got {x.shape}")
-            xh = x.astype(np.float32)
-            xl = (x - xh.astype(np.float64)).astype(np.float32)
-            yh, yl = jax.jit(self.apply_planes)(
-                self.device_arrays(), jnp.asarray(xh), jnp.asarray(xl))
-            out = (np.asarray(yh, dtype=np.float64)
-                   + np.asarray(yl, dtype=np.float64))
-            out = float(alpha) * out
-            if y is not None:
-                out = out + float(beta) * np.asarray(y, dtype=np.float64)
-            return out
+        n = self.shape[1]
         x = jnp.asarray(x, dtype=self.dtype)
         if x.ndim != 2 or x.shape[0] != n:
             raise ValueError(f"X must have shape ({n}, k), got {x.shape}")
-        k = x.shape[1]
-        with_y = y is not None
-        if beta != 0.0 and not with_y:
+        if beta != 0.0 and y is None:
             raise ValueError("beta != 0 requires y")
-        al = jnp.asarray(alpha, dtype=self.dtype)
-        be = jnp.asarray(beta, dtype=self.dtype)
-        yv = jnp.asarray(y, dtype=self.dtype) if with_y else None
-        if self.method == "ell":
-            mp = self._val.shape[0]
-            blk = self._blk(self._width, k, x.dtype.itemsize, mp)
-            # ensure divisibility: _round_up'd rows are multiple of 8; find blk
-            while mp % blk:
-                blk -= 8
-            return _ell_spmm(self._val, self._col, x, al, be, yv, m, blk, with_y)
-        if self.method == "bucket":
-            blks = tuple(
-                self._blk(w, k, x.dtype.itemsize, v.shape[0])
-                for (v, c), w in zip(self._buckets, self._bucket_widths)
-            )
-            return _bucket_spmm(self._buckets, self._perm, x, al, be, yv, m,
-                                blks, with_y)
-        if self.method in ("bsr", "spmv_passes"):
-            if self.method == "bsr":
-                out = jax.jit(self.apply_traced)(x)
-            else:
-                # same except-delegate pattern as the _pallas branch below:
-                # a routed spmv_passes plan keeps the CSR, so a Mosaic
-                # compile failure in the underlying SpMV kernel degrades to
-                # the next candidate (pseg kres=False) instead of crashing
-                # the caller (ADVICE r4 item 1).
-                try:
-                    out = jax.jit(self.apply_pure)(self.device_arrays(), x)
-                except (ValueError, RuntimeError):
-                    if self._csr is None:
-                        raise
-                    return self._fallback_for(k)(x, alpha, beta, y)
-            out = al.astype(out.dtype) * out
-            if with_y:
-                out = out + be.astype(out.dtype) * yv
-            return out
-        try:
-            return self._pallas(x, al, be, yv, with_y)
-        except (ValueError, RuntimeError):
-            # per-K limits (VMEM staging, unroll size, block-row-split
-            # shape) surface at call time as ValueError from the host-side
-            # guards or — when an estimate is off — as a Mosaic compile
-            # RuntimeError; delegate to a lazily-built per-k fallback plan
-            # instead of crashing.
-            if self._csr is None:
-                raise
-            return self._fallback_for(k)(x, alpha, beta, y)
-
-    def _fallback_for(self, k: int) -> "SpmmPlan":
-        """Per-k fallback chain. A bsr_pallas_t plan built for one k_hint
-        refuses a k needing a different block-row split; the first fallback
-        is therefore the SAME transposed kernel re-planned for this k (it
-        stays at the DMA roofline — measured 109% of triad on consph K=32
-        row-split vs 63.9% for the (rows, K) kernel the old chain degraded
-        to; VERDICT r1 item 2). Then (rows, K) BSR, then w-SELL re-planned
-        for this k, then PSEG, then the XLA heuristic — the chain never
-        rebuilds the failing method at the same k (would recurse)."""
-        kp = -(-k // 8) * 8
-        fb = self._fb.get(kp)
-        if fb is not None:
-            return fb
-        built_kp = getattr(self._pallas, "_kp_built", None) \
-            if self.method in ("pallas", "bsr_pallas_t") else None
-        candidates = []
-        if self.method == "bsr_pallas_t":
-            if built_kp != kp:
-                candidates.append(("bsr_pallas_t", {"k_hint": k}))
-            candidates.append(("bsr_pallas", {}))
-        if self.method in ("bsr_pallas_t", "bsr_pallas") or (
-                self.method == "pallas" and built_kp != kp):
-            candidates.append(("pallas", {"k_hint": k}))
-        if self.method != "pseg":
-            candidates.append(("pseg", {"k_hint": k}))
-        elif getattr(self._pallas, "_kres", False):
-            # a k-resident compile failure at call time: the whole-VMEM
-            # kc-chunked executor is only the right fallback while the
-            # whole k fits one chunk. When kc < k it runs ceil(k/kc) FULL
-            # schedule passes through the wider SpMM gather body —
-            # measured strictly dominated by k passes of the tuned SpMV
-            # kernel (powerlaw-1M-102M K=8: 42.3 ms vs 25.7 ms of passes,
-            # suite_r9/r10_large; same 1.65-1.89x at K=32), so route to
-            # spmv_passes first at that scale (VERDICT r3 items 2/weak-1).
-            from ..retile_pseg import SUBLANES as _PSEG_SUBLANES
-
-            if self._pallas._k_chunk() >= min(k, _PSEG_SUBLANES):
-                candidates.append(("pseg", {"k_hint": k, "kres": False}))
-            else:
-                candidates.append(("spmv_passes", {"k_hint": k}))
-                candidates.append(("pseg", {"k_hint": k, "kres": False}))
-        for meth, kw in candidates:
-            try:
-                fb = SpmmPlan(self._csr, meth,
-                              value_dtype=self._value_dtype, **kw)
-                # fire the per-k guards now so a candidate that would fail
-                # at call time is skipped here instead
-                if meth == "bsr_pallas_t":
-                    fb._pallas._get_calls(k)
-                elif meth not in ("pseg", "spmv_passes"):
-                    fb._pallas._get_call(k)
-                break
-            except (ValueError, RuntimeError):
-                fb = None
-        if fb is None:
-            # k SpMV passes over the proven SpMV auto plan — the only
-            # route at web scale (m past every whole-VMEM SpMM y ceiling)
-            # that stays on Pallas kernels; ~20x faster than XLA ell there
-            try:
-                fb = SpmmPlan(self._csr, "spmv_passes",
-                              value_dtype=self._value_dtype, k_hint=k)
-            except (ValueError, RuntimeError):
-                fb = None
-        if fb is None:
-            fb = SpmmPlan(self._csr, self._xla_heuristic(self._csr))
-        self._fb[kp] = fb
-        return fb
+        # Python scalars: jit's dispatch converts them far more cheaply
+        # than a jnp.asarray per call would
+        al, be = float(alpha), float(beta)
+        yv = None if y is None else jnp.asarray(y, dtype=self.dtype)
+        return self._jit_call(self.device_arrays(), x, al, be, yv)
 
 
 def spmm(a, x, alpha: float = 1.0, beta: float = 0.0, y=None,

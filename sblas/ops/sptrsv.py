@@ -1,35 +1,39 @@
 """SpTRSV: solve L x = b for triangular CSR L (SURVEY.md C7/C8).
 
 Mirrors the reference's analysis/solve split: ``SptrsvPlan`` runs the host
-level-set analysis once (native C++ sweep), then the solve executes as a
-single jitted ``lax.fori_loop`` over level tiles — the TPU analogue of the
-reference's one-kernel-launch-per-level wavefront, with the entire wavefront
-loop living inside one XLA computation so per-level launch overhead is a loop
-iteration, not a dispatch (SURVEY.md §3.3).
+level-set analysis once (native C++ sweep) into a
+:class:`~sblas.sptrsv_schedule.LevelSchedule`, then every solve walks that
+schedule. Two routes consume it:
+
+- ``'tiles'``  — a jitted ``lax.fori_loop`` over level tiles, one trip per
+  tile (:func:`_solve_tiles`). Runs everywhere; the reference for the other.
+- ``'triton'`` — the whole level walk inside one Pallas-Triton kernel launch
+  (:mod:`sblas.ops.kernels.sptrsv_triton`). GPU only.
+
+``'auto'`` picks by platform (:meth:`SptrsvPlan._pick`).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 
-from ..formats import CSR
 from ..sptrsv_schedule import build_level_schedule, validate_schedule
 from .spmv import _PLAN_CACHE
 
+METHODS = ("tiles", "triton")
 
-@functools.partial(jax.jit, static_argnames=("n", "tile_rows", "num_tiles"))
-def _solve_tiles(slot_row, col, val, inv_diag, b_pad, n, tile_rows, num_tiles):
+
+def _solve_tiles_body(slot_row, col, val, inv_diag, b_pad, n, tile_rows,
+                      num_tiles):
     """Serial scan over tiles; each tile solves tile_rows independent rows.
+    ``b_pad`` is (n + 2,) or (n + 2, K).
 
     x buffer layout: [0:n] solution, [n] constant zero (gather target of
     padded columns), [n+1] dump slot (scatter target of padded rows).
     """
-    width = col.shape[1]
+    from .common import ell_dot
 
     def body(t, x):
         s0 = t * tile_rows
@@ -37,15 +41,19 @@ def _solve_tiles(slot_row, col, val, inv_diag, b_pad, n, tile_rows, num_tiles):
         c = lax.dynamic_slice_in_dim(col, s0, tile_rows)
         v = lax.dynamic_slice_in_dim(val, s0, tile_rows)
         idg = lax.dynamic_slice_in_dim(inv_diag, s0, tile_rows)
-        acc = jnp.sum(v * x[c], axis=1)
-        xb = (b_pad[rows] - acc) * idg
+        if b_pad.ndim == 2:
+            idg = idg[:, None]
+        xb = (b_pad[rows] - ell_dot(v, c, x)) * idg
         # pad rows carry slot_row == n -> redirect their write to dump n+1
         safe_rows = jnp.where(rows == n, n + 1, rows)
         return x.at[safe_rows].set(xb)
 
-    x0 = jnp.zeros(n + 2, dtype=val.dtype)
-    x = lax.fori_loop(0, num_tiles, body, x0)
-    return x[:n]
+    x0 = jnp.zeros_like(b_pad)
+    return lax.fori_loop(0, num_tiles, body, x0)[:n]
+
+
+_solve_tiles = jax.jit(_solve_tiles_body,
+                       static_argnames=("n", "tile_rows", "num_tiles"))
 
 
 class SptrsvPlan:
@@ -63,46 +71,11 @@ class SptrsvPlan:
         self.lower = lower
         self.unit_diagonal = unit_diagonal
         if method == "auto":
-            method = "tiles"
-            from ..utils.backend import on_cpu
-
-            if l.dtype != np.float64 and not on_cpu():
-                # XLA gather is ~1 GB/s serial on TPU (measured); the Pallas
-                # wavefront kernel is the only fast path there.
-                method = "pallas"
-        if method == "pallas_ds":
-            # f64-class fast path (opt-in): f32 wavefront + double-single
-            # residual refinement in slot space (kernels/sptrsv_ds)
-            from .kernels.sptrsv_ds import PallasSptrsvDS
-
-            self._pallas = PallasSptrsvDS(l, lower=lower,
-                                          unit_diagonal=unit_diagonal, **{})
-            self.method = "pallas_ds"
-            self.bytes_per_iter = self._pallas.bytes_per_iter
-            self.nlevels = self._pallas.nlevels
-            self.tile_rows = 128
-            self.num_tiles = self._pallas.layout.num_tiles
-            self.padding_ratio = (self._pallas.layout.num_blocks * 128
-                                  / max(l.shape[0], 1))
-            return
-        if method == "pallas":
-            from .kernels.sptrsv_pallas import PallasSptrsv
-
-            try:
-                self._pallas = PallasSptrsv(l, lower=lower,
-                                            unit_diagonal=unit_diagonal)
-            except ValueError:
-                # level structure too deep for the VMEM wavefront; fall back
-                method = "tiles"
+            method = self._pick()
+        if method not in METHODS:
+            raise ValueError(f"unknown sptrsv method {method!r}; "
+                             f"choose from {METHODS}")
         self.method = method
-        if method == "pallas":
-            self.bytes_per_iter = self._pallas.bytes_per_iter
-            self.nlevels = self._pallas.nlevels
-            self.tile_rows = 128
-            self.num_tiles = self._pallas.layout.num_tiles
-            self.padding_ratio = (self._pallas.layout.num_blocks * 128
-                                  / max(l.shape[0], 1))
-            return
         sched = build_level_schedule(
             l, lower=lower, unit_diagonal=unit_diagonal, tile_rows=tile_rows
         )
@@ -112,11 +85,20 @@ class SptrsvPlan:
         self.tile_rows = sched.tile_rows
         self.num_tiles = sched.num_tiles
         self.padding_ratio = sched.padded_slots / max(l.shape[0], 1)
-        self._sched = sched
-        self._slot_row = jnp.asarray(sched.slot_row)
-        self._col = jnp.asarray(sched.col)
-        self._val = jnp.asarray(sched.val)
-        self._inv_diag = jnp.asarray(sched.inv_diag)
+        if method == "triton":
+            from ..utils.backend import platform
+            from .kernels import sptrsv_triton
+
+            if platform() != "gpu":
+                raise ValueError("the 'triton' sptrsv route needs a GPU")
+            self._wb, self._num_warps = sptrsv_triton.launch_shape(
+                sched.tile_rows, sched.width)
+            arrs = sptrsv_triton.kernel_arrays(sched, self._wb)
+        else:
+            arrs = {"slot_row": sched.slot_row, "col": sched.col,
+                    "val": sched.val, "inv_diag": sched.inv_diag}
+        self._arrs = {k: jnp.asarray(v) for k, v in arrs.items()}
+        self._jit_pure = jax.jit(self.apply_pure)
         # bytes touched per solve: schedule stream + x/b traffic
         self.bytes_per_iter = (
             sched.col.size * (4 + l.data.itemsize)
@@ -124,66 +106,41 @@ class SptrsvPlan:
             + l.shape[0] * 2 * l.data.itemsize
         )
 
+    @staticmethod
+    def _pick() -> str:
+        """The one-launch kernel on a GPU, the XLA tile loop elsewhere."""
+        from ..utils.backend import platform
+
+        return "triton" if platform() == "gpu" else "tiles"
+
     def device_arrays(self):
-        if self.method == "pallas":
-            return self._pallas.device_arrays()
-        return {"slot_row": self._slot_row, "col": self._col,
-                "val": self._val, "inv_diag": self._inv_diag}
+        return dict(self._arrs)
 
     def apply_pure(self, arrs, b):
-        """x = solve(L, b) with arrays passed explicitly (jit-argument safe)."""
-        if self.method == "pallas_ds":
-            raise ValueError(
-                "pallas_ds carries b as two f32 planes; use "
-                "plan._pallas.solve_planes(arrs, bh, bl) or the numpy-f64 "
-                "__call__")
-        if self.method == "pallas":
-            return self._pallas.apply_pure(arrs, b)
+        """x = solve(L, b) with arrays passed explicitly (jit-argument
+        safe); ``b`` is (n,) or (n, K)."""
         n = self.shape[0]
-        b_pad = jnp.concatenate([b, jnp.zeros(2, dtype=b.dtype)])
-        tile_rows, num_tiles = self.tile_rows, self.num_tiles
-        slot_row, col, val, inv_diag = (arrs["slot_row"], arrs["col"],
-                                        arrs["val"], arrs["inv_diag"])
+        if self.method == "triton":
+            from .kernels import sptrsv_triton
 
-        def body(t, x):
-            s0 = t * tile_rows
-            rows = lax.dynamic_slice_in_dim(slot_row, s0, tile_rows)
-            c = lax.dynamic_slice_in_dim(col, s0, tile_rows)
-            v = lax.dynamic_slice_in_dim(val, s0, tile_rows)
-            idg = lax.dynamic_slice_in_dim(inv_diag, s0, tile_rows)
-            acc = jnp.sum(v * x[c], axis=1)
-            xb = (b_pad[rows] - acc) * idg
-            safe_rows = jnp.where(rows == n, n + 1, rows)
-            return x.at[safe_rows].set(xb)
-
-        x0 = jnp.zeros(n + 2, dtype=val.dtype)
-        return lax.fori_loop(0, num_tiles, body, x0)[:n]
+            return sptrsv_triton.solve(
+                arrs, b, n=n, tile_rows=self.tile_rows,
+                num_tiles=self.num_tiles, wb=self._wb,
+                num_warps=self._num_warps)
+        pad = ((0, 2),) + ((0, 0),) * (b.ndim - 1)
+        return _solve_tiles_body(arrs["slot_row"], arrs["col"], arrs["val"],
+                                 arrs["inv_diag"], jnp.pad(b, pad), n,
+                                 self.tile_rows, self.num_tiles)
 
     def apply_traced(self, b):
         return self.apply_pure(self.device_arrays(), b)
 
     def __call__(self, b):
         n = self.shape[0]
-        if self.method == "pallas_ds":
-            # numpy f64 boundary (jnp.asarray would downcast under x64-off)
-            b = np.asarray(b, dtype=np.float64)
-            if b.shape != (n,):
-                raise ValueError(f"b must have shape ({n},), got {b.shape}")
-            return self._pallas(b)
         b = jnp.asarray(b, dtype=self.dtype)
         if b.shape != (n,):
             raise ValueError(f"b must have shape ({n},), got {b.shape}")
-        if self.method == "pallas":
-            # host-side permutes (XLA device gathers are slow on TPU)
-            p = self._pallas
-            b2d = jnp.asarray(p.b_to_b2d(np.asarray(b)))
-            x2d = p.solve_permuted(p.device_arrays(), b2d)
-            return jnp.asarray(p.x2d_to_x(np.asarray(x2d)))
-        b_pad = jnp.concatenate([b, jnp.zeros(2, dtype=b.dtype)])
-        return _solve_tiles(
-            self._slot_row, self._col, self._val, self._inv_diag, b_pad,
-            n, self.tile_rows, self.num_tiles,
-        )
+        return self._jit_pure(self._arrs, b)
 
 
 def sptrsv(l, b, *, lower: bool = True, unit_diagonal: bool = False,

@@ -11,14 +11,11 @@ the dependency-DAG depth (the level count of the classic level-set
 analysis), so the sweep is **exact after nlevels-1 applications** — and
 useful far earlier: preconditioner applications (IC(0)/ILU(0) inside
 CG/GMRES) tolerate truncated triangular solves, which replaces the
-latency-bound wavefront kernel (at its measured ~340 ns/round issue-rate
-floor — DESIGN.md e24/e26) with a handful of *bandwidth-bound* SpMV
-passes at 80-90% of STREAM. Each sweep rides the existing w-SELL/PSEG
-SpMV fast path; the multi-RHS variant rides SpMM, amortizing the E
-stream over all k right-hand sides per sweep.
+latency-bound level-by-level solve with a handful of *bandwidth-bound*
+SpMV passes. Each sweep rides the SpMV route; the multi-RHS variant rides
+SpMM, amortizing the E stream over all k right-hand sides per sweep.
 
-This is the TPU-native analogue of iterative sparse triangular solves
-from the GPU literature (Anzt/Chow/Dongarra, "Iterative sparse
+This is the iterative sparse triangular solve of the GPU literature (Anzt/Chow/Dongarra, "Iterative sparse
 triangular solves for preconditioning"). The reference library's SpTRSV
 is exact-only (SURVEY.md C7-C9); this is a deliberate capability
 extension along the same roofline logic that motivated it there:

@@ -1,22 +1,24 @@
-"""Multi-chip distribution (layer L3, SURVEY.md C10/C11).
+"""Multi-device distribution (layer L3, SURVEY.md C10/C11).
 
 The reference's multi-GPU runtime is an OpenMP thread per GPU with P2P
-copies/unified memory as transport and device+thread barriers as sync. The
-TPU-native equivalent owns no transport at all: partitions come from
+copies/unified memory as transport and device+thread barriers as sync.
+Here the library owns no transport at all: partitions come from
 ``sblas.partition``, placement is `jax.sharding.NamedSharding` over a 1D
-`Mesh('chips')`, and the collectives (`all_gather` of x, `psum` /
-`psum_scatter` of partial y, per-level exchange in SpTRSV) are emitted by
-XLA from `shard_map`-annotated code and ride ICI.
+`Mesh('chips')`, and the collectives (`all_gather` of x, `psum` of partial
+y, per-level exchange in SpTRSV) are emitted by XLA from
+`shard_map`-annotated code, which on GPUs it hands to NCCL.
 
-Develop/test on a CPU mesh via XLA_FLAGS=--xla_force_host_platform_device_count=N;
-identical code runs on a real v5e pod slice.
+The cards of one host are joined all to all, so the mesh follows the
+algorithm, not a physical topology. Develop and test on a CPU mesh via
+XLA_FLAGS=--xla_force_host_platform_device_count=N; the same code runs on
+the GPUs of one host.
 
 Multi-host: after `jax.distributed.initialize()`, `jax.devices()` spans all
 hosts. The flat plans work unchanged on a global mesh, but the hierarchical
 ('hosts', 'chips') plans (`sblas.parallel.hier`) split every collective by
-mesh axis — all_gather over 'chips' rides ICI, the once-per-host hop over
-'hosts' rides DCN. Prefer those (or the 2D/halo plans, whose per-chip
-collective bytes shrink with the mesh) when DCN is in the path.
+mesh axis — all_gather over 'chips' stays within a host, the once-per-host
+hop over 'hosts' crosses the network. Prefer those (or the 2D/halo plans,
+whose per-device collective bytes shrink with the mesh) across hosts.
 """
 
 from .mesh import (make_mesh, make_mesh2d, chips_axis, rows_axis, cols_axis,

@@ -1,24 +1,23 @@
-"""Multi-host ('hosts', 'chips') hierarchical mesh plans (SURVEY.md C11 —
-"DCN for multi-host later").
+"""Multi-host ('hosts', 'chips') hierarchical mesh plans (SURVEY.md C11).
 
-A TPU pod slice spans hosts: chips within a host are linked by ICI
-(~100s GB/s), hosts by DCN (~10s GB/s). The flat 1D plans treat every
-device-pair as equal, so their single all_gather makes every chip's x chunk
-cross DCN separately. The hierarchical plans split the collective by mesh
-axis:
+Devices within a host share a fast link; hosts are joined by a slower
+network. The flat 1D plans treat every device pair as equal, so their
+single all_gather makes every device's x chunk cross the host network
+separately. The hierarchical plans split the collective by mesh axis:
 
-    x_host = all_gather(x_chunk, 'chips')      # intra-host, ICI
-    x_full = all_gather(x_host,  'hosts')      # one DCN transfer per host
+    x_host = all_gather(x_chunk, 'chips')      # within a host
+    x_full = all_gather(x_host,  'hosts')      # one transfer per host
     y      = local_spmv(shard, x_full)
     [nnz_split] y = psum(y, 'chips') then psum(y, 'hosts')
 
-On a real multi-host pod the mesh should be built with
+On a real multi-host cluster the mesh should be built with
 ``make_mesh_hier()`` (devices grouped by process so 'chips' is intra-host);
 on the 8-virtual-CPU test mesh any (hosts, chips) reshape exercises the same
 code path (the collectives are axis-named, not topology-named).
 
-Partitioning, layout stacking, and the local Pallas/ELL bodies are shared
-with the flat 1D plans — the hierarchy changes only the collective schedule.
+Partitioning, layout stacking and the local bodies are shared with the flat
+1D plans (:mod:`.local`) — the hierarchy changes only the collective
+schedule.
 """
 
 from __future__ import annotations
@@ -30,11 +29,10 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..formats import CSR, INDEX_DTYPE
-from ..partition import partition_rows, partition_nnz_split
-from ..retile import to_ell
+from ..formats import CSR
+from .local import apply_rows, shard_rows
 from .mesh import hosts_axis, chips_axis
-from .spmv_dist import _round_up, _stack_ell
+from .spmv_dist import _round_up
 
 
 def make_mesh_hier(hosts: int | None = None, chips: int | None = None) -> Mesh:
@@ -53,27 +51,23 @@ def make_mesh_hier(hosts: int | None = None, chips: int | None = None) -> Mesh:
     if hosts * chips > len(devs):
         raise ValueError(f"requested {hosts}x{chips} devices, have {len(devs)}")
     if jax.process_count() > 1:
-        # group by process so the 'chips' axis is intra-host (ICI) and the
-        # 'hosts' axis crosses processes (DCN)
+        # group by process so the 'chips' axis is intra-host and the
+        # 'hosts' axis crosses processes
         devs = sorted(devs, key=lambda d: (d.process_index, d.id))
     arr = np.array(devs[: hosts * chips]).reshape(hosts, chips)
     return Mesh(arr, (hosts_axis, chips_axis))
 
 
-class HierSpmvPlan:
-    """1D row/nnz partition over all hosts*chips devices, hierarchical
-    collectives. Local compute: the Pallas w-SELL kernel when shards are
-    servable, XLA ELL otherwise (``local_method`` records which)."""
+class _HierPlan:
+    """Shared set-up: 1D row/nnz partition over all hosts*chips devices,
+    stacked local blocks, the hierarchical collective schedule."""
 
-    def __init__(self, a: CSR, mesh: Mesh, *, strategy: str = "nnz_balanced",
-                 local_method: str = "auto", min_fill: float = 0.2,
-                 th: int = 1024):
-        self._min_fill = min_fill
-        self._th = th
+    def __init__(self, a: CSR, mesh: Mesh, strategy: str):
         if mesh.axis_names != (hosts_axis, chips_axis):
             raise ValueError(
-                f"HierSpmvPlan needs a ('{hosts_axis}', '{chips_axis}') mesh"
-                f", got {mesh.axis_names}; use make_mesh_hier()")
+                f"{type(self).__name__} needs a ('{hosts_axis}', "
+                f"'{chips_axis}') mesh, got {mesh.axis_names}; use "
+                "make_mesh_hier()")
         self.mesh = mesh
         self.nhosts, self.nchips = mesh.devices.shape
         ndev = self.nhosts * self.nchips
@@ -85,197 +79,78 @@ class HierSpmvPlan:
         self.x_chunk = _round_up(max(-(-n // ndev), 1), 8)
         self.n_pad = self.x_chunk * ndev
 
+        sr = shard_rows(a, ndev, strategy,
+                        NamedSharding(self.mesh, P((hosts_axis, chips_axis))))
+        self._split = sr.unpad is None
+        self._unpad = sr.unpad
+        self.local_method = sr.method
+        self.bytes_per_iter = sr.bytes_per_iter
+        self._out_rows = sr.out_rows
+        self._arrs = sr.arrs
+
+    def _build_run(self, k: int | None):
+        """Executor for x of shape (n_pad,) (``k`` None) or (n_pad, k)."""
+        m = self.shape[0]
+        out_rows, split = self._out_rows, self._split
         axes = (hosts_axis, chips_axis)
-        sh = lambda spec: NamedSharding(self.mesh, spec)
-        self._sh_parts = sh(P(axes))
-        self._x_sharding = sh(P(axes))
+        tail = () if k is None else (None,)
 
-        self._split = strategy == "nnz_split"
-        if self._split:
-            from ..formats import COO, coo_to_csr
-
-            part = partition_nnz_split(a, ndev)
-            local_parts = []
-            for d, p in enumerate(part.parts):
-                coo = p.tocoo()
-                r0 = int(part.first_row[d])
-                local_parts.append(coo_to_csr(COO(
-                    (m, n), coo.row.astype(np.int64) + r0, coo.col, coo.data
-                )))
-            row_starts = None
-        else:
-            part = partition_rows(a, ndev, strategy)
-            local_parts = part.parts
-            row_starts = [int(r) for r in part.row_starts]
-        self._row_starts = row_starts
-
-        self.local_method = None
-        if local_method in ("auto", "pallas"):
-            try:
-                self._init_pallas(local_parts, row_starts)
-                self.local_method = "pallas"
-            except ValueError:
-                if local_method == "pallas":
-                    raise
-        if self.local_method is None:
-            self._init_ell(local_parts, row_starts, a)
-            self.local_method = "ell"
-        self._build_fn()
-
-    # -- layout staging ----------------------------------------------------
-    def _init_pallas(self, parts, row_starts):
-        from .wsell_stack import stack_wsell
-
-        m, n = self.shape
-        st = stack_wsell(parts, self.n_pad, self.dtype,
-                         min_fill=self._min_fill, th=self._th)
-        self._stacked = st
-        self.bytes_per_iter = st.bytes_per_iter * self.ndev
-        self._val = jax.device_put(st.val, self._sh_parts)
-        self._lcol = jax.device_put(st.lcol, self._sh_parts)
-        self._wr = jax.device_put(st.wrow, self._sh_parts)
-        self._ob = jax.device_put(st.obase, self._sh_parts)
-        if not self._split:
-            from .wsell_stack import unpad_slots
-
-            self._unpad = jnp.asarray(unpad_slots(
-                row_starts, st.y_rows * st.sub).astype(INDEX_DTYPE))
-
-    def _init_ell(self, parts, row_starts, a):
-        m, n = self.shape
-        col, val, rows_pad, width = _stack_ell(parts, n, a.dtype)
-        self.rows_pad = rows_pad
-        self._col = jax.device_put(col, self._sh_parts)
-        self._val = jax.device_put(val, self._sh_parts)
-        self.bytes_per_iter = col.size * (a.data.itemsize + 4)
-        if not self._split:
-            from .wsell_stack import unpad_slots
-
-            self._unpad = jnp.asarray(
-                unpad_slots(row_starts, rows_pad).astype(INDEX_DTYPE))
-
-    # -- the hierarchical collective schedule ------------------------------
-    @staticmethod
-    def _gather_x(x_shard):
-        with jax.named_scope("collective_ici"):
-            x_host = lax.all_gather(x_shard, chips_axis, tiled=True)
-        with jax.named_scope("collective_dcn"):
-            return lax.all_gather(x_host, hosts_axis, tiled=True)
-
-    @staticmethod
-    def _merge_y(y):
-        with jax.named_scope("collective_ici"):
-            y = lax.psum(y, chips_axis)
-        with jax.named_scope("collective_dcn"):
-            return lax.psum(y, hosts_axis)
-
-    def _build_fn(self):
-        if self.local_method == "pallas":
-            self._build_fn_pallas()
-        else:
-            self._build_fn_ell()
-
-    def _build_fn_ell(self):
-        m, n = self.shape
-        split = self._split
-        axes = (hosts_axis, chips_axis)
-        gather_x, merge_y = self._gather_x, self._merge_y
-
-        def body(col, val, x_shard):
-            x_full = gather_x(x_shard)
+        def body(arrs, x_shard):
+            buckets, perm = arrs
+            with jax.named_scope("collective_intra_host"):
+                x_host = lax.all_gather(x_shard, chips_axis, tiled=True)
+            with jax.named_scope("collective_inter_host"):
+                x_full = lax.all_gather(x_host, hosts_axis, tiled=True)
             with jax.named_scope("kernel"):
-                y_loc = jnp.sum(val[0] * x_full[col[0]], axis=1)
+                y = apply_rows(buckets, perm, x_full, out_rows)
             if split:
-                y_loc = merge_y(y_loc)
-            return y_loc[None, None]
-
-        out_spec = P(None, None, None) if split else P(*axes, None)
-        fn = shard_map(
-            body, mesh=self.mesh,
-            in_specs=(P(axes), P(axes), P(axes)),
-            out_specs=out_spec,
-            check_vma=False,
-        )
-
-        if split:
-            @jax.jit
-            def run(col, val, x_pad):
-                return fn(col, val, x_pad).reshape(-1)[:m]
-        else:
-            unpad = self._unpad
-
-            @jax.jit
-            def run(col, val, x_pad):
-                return fn(col, val, x_pad).reshape(-1)[unpad]
-
-        self._run = run
-
-    def _build_fn_pallas(self):
-        import jax.experimental.pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        from ..ops.kernels.spmv_pallas import _kernel
-        from ..retile_wsell import LANES
-        from ..utils.backend import on_cpu
-
-        m, n = self.shape
-        st = self._stacked
-        split = self._split
-        axes = (hosts_axis, chips_axis)
-        xpad = st.x2d_rows * LANES - self.n_pad
-        gather_x, merge_y = self._gather_x, self._merge_y
-
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(st.num_tiles,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec((st.th, LANES), lambda t, wr, ob: (t, 0)),
-                pl.BlockSpec((st.th, LANES), lambda t, wr, ob: (t, 0)),
-            ],
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        )
-        call = pl.pallas_call(
-            _kernel(st.th, st.sub, st.nwin, st.wgroup),
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((st.y_rows, st.sub), jnp.float32),
-            interpret=on_cpu(),
-        )
-
-        def body(wr, ob, val, lcol, x_shard):
-            x_full = gather_x(x_shard)
-            x2d = jnp.pad(x_full.astype(jnp.float32),
-                          (0, xpad)).reshape(st.x2d_rows, LANES)
-            with jax.named_scope("kernel"):
-                y = call(wr[0], ob[0], x2d, val[0], lcol[0])
-            if split:
-                y = merge_y(y)
+                with jax.named_scope("collective_intra_host"):
+                    y = lax.psum(y, chips_axis)
+                with jax.named_scope("collective_inter_host"):
+                    y = lax.psum(y, hosts_axis)
             return y[None, None]
 
-        out_spec = (P(None, None, None, None) if split
-                    else P(*axes, None, None))
         fn = shard_map(
             body, mesh=self.mesh,
-            in_specs=(P(axes),) * 4 + (P(axes),),
-            out_specs=out_spec,
+            in_specs=(P(axes), P(axes, *tail)),
+            out_specs=(P(None, None, None, *tail) if split
+                       else P(*axes, None, *tail)),
             check_vma=False,
         )
-        dtype = self.dtype
+        flat = (-1,) + (() if k is None else (k,))
 
         if split:
             @jax.jit
-            def run(wr, ob, val, lcol, x_pad):
-                y = fn(wr, ob, val, lcol, x_pad)
-                return y.reshape(-1)[:m].astype(dtype)
+            def run(arrs, x_pad):
+                return fn(arrs, x_pad).reshape(flat)[:m]
         else:
             unpad = self._unpad
 
             @jax.jit
-            def run(wr, ob, val, lcol, x_pad):
-                y = fn(wr, ob, val, lcol, x_pad)
-                return y.reshape(-1)[unpad].astype(dtype)
+            def run(arrs, x_pad):
+                return fn(arrs, x_pad).reshape(flat)[unpad]
 
-        self._run = run
+        return run
+
+    def _apply(self, run, x_pad, alpha, beta, y):
+        out = alpha * run(self._arrs, x_pad)
+        if y is not None:
+            out = out + beta * jnp.asarray(y, dtype=self.dtype)
+        elif beta != 0.0:
+            raise ValueError("beta != 0 requires y")
+        return out
+
+
+class HierSpmvPlan(_HierPlan):
+    """1D row/nnz partition over all hosts*chips devices, hierarchical
+    collectives. Local compute: XLA ELL, or degree buckets on skewed rows
+    (``local_method`` records which)."""
+
+    def __init__(self, a: CSR, mesh: Mesh, *, strategy: str = "nnz_balanced"):
+        super().__init__(a, mesh, strategy)
+        self._x_sharding = NamedSharding(self.mesh,
+                                         P((hosts_axis, chips_axis)))
+        self._run = self._build_run(None)
 
     def __call__(self, x, alpha: float = 1.0, beta: float = 0.0, y=None):
         m, n = self.shape
@@ -284,117 +159,18 @@ class HierSpmvPlan:
             raise ValueError(f"x must have shape ({n},)")
         x_pad = jnp.zeros(self.n_pad, dtype=self.dtype).at[:n].set(x)
         x_pad = jax.device_put(x_pad, self._x_sharding)
-        if self.local_method == "pallas":
-            out = self._run(self._wr, self._ob, self._val, self._lcol, x_pad)
-        else:
-            out = self._run(self._col, self._val, x_pad)
-        out = alpha * out
-        if y is not None:
-            out = out + beta * jnp.asarray(y, dtype=self.dtype)
-        elif beta != 0.0:
-            raise ValueError("beta != 0 requires y")
-        return out
+        return self._apply(self._run, x_pad, alpha, beta, y)
 
 
-class HierSpmmPlan:
+class HierSpmmPlan(_HierPlan):
     """Hierarchical-collective SpMM: same schedule as HierSpmvPlan with the
-    chunked XLA ELL local contraction (K-wide)."""
+    K-wide local contraction."""
 
-    def __init__(self, a: CSR, mesh: Mesh, *, strategy: str = "nnz_balanced",
-                 row_block: int = 2048):
-        if mesh.axis_names != (hosts_axis, chips_axis):
-            raise ValueError(
-                f"HierSpmmPlan needs a ('{hosts_axis}', '{chips_axis}') mesh")
-        self.mesh = mesh
-        self.nhosts, self.nchips = mesh.devices.shape
-        ndev = self.nhosts * self.nchips
-        self.ndev = ndev
-        self.shape = a.shape
-        self.dtype = a.dtype
-        self.row_block = row_block
-        m, n = a.shape
-        self.x_chunk = _round_up(max(-(-n // ndev), 1), 8)
-        self.n_pad = self.x_chunk * ndev
-
-        self._split = strategy == "nnz_split"
-        if self._split:
-            from ..formats import COO, coo_to_csr
-
-            part = partition_nnz_split(a, ndev)
-            parts = []
-            for d, p in enumerate(part.parts):
-                coo = p.tocoo()
-                r0 = int(part.first_row[d])
-                parts.append(coo_to_csr(COO(
-                    (m, n), coo.row.astype(np.int64) + r0, coo.col, coo.data
-                )))
-        else:
-            part = partition_rows(a, ndev, strategy)
-            parts = part.parts
-        col, val, rows_pad, width = _stack_ell(parts, n, a.dtype)
-        self.rows_pad = rows_pad
-        sh = NamedSharding(self.mesh, P((hosts_axis, chips_axis)))
-        self._col = jax.device_put(col, sh)
-        self._val = jax.device_put(val, sh)
-        self.bytes_per_iter = col.size * (a.data.itemsize + 4)
-        if not self._split:
-            from .wsell_stack import unpad_slots
-
-            self._unpad = jnp.asarray(unpad_slots(
-                [int(r) for r in part.row_starts], rows_pad
-            ).astype(INDEX_DTYPE))
+    def __init__(self, a: CSR, mesh: Mesh, *, strategy: str = "nnz_balanced"):
+        super().__init__(a, mesh, strategy)
         self._x_sharding = NamedSharding(
             self.mesh, P((hosts_axis, chips_axis), None))
         self._runs = {}
-
-    def _get_run(self, k: int):
-        if k in self._runs:
-            return self._runs[k]
-        m, n = self.shape
-        rows_pad = self.rows_pad
-        split = self._split
-        axes = (hosts_axis, chips_axis)
-        blk = min(_round_up(self.row_block, 8), rows_pad)
-        while rows_pad % blk:
-            blk -= 8
-        nblk = rows_pad // blk
-
-        def body(col, val, x_shard):
-            x_host = lax.all_gather(x_shard, chips_axis, tiled=True)
-            x_full = lax.all_gather(x_host, hosts_axis, tiled=True)
-
-            def f(i):
-                c = lax.dynamic_slice_in_dim(col[0], i * blk, blk)
-                v = lax.dynamic_slice_in_dim(val[0], i * blk, blk)
-                return jnp.einsum("rw,rwk->rk", v, x_full[c])
-
-            y = lax.map(f, jnp.arange(nblk)).reshape(rows_pad, k)
-            if split:
-                y = lax.psum(y, chips_axis)
-                y = lax.psum(y, hosts_axis)
-            return y[None, None]
-
-        fn = shard_map(
-            body, mesh=self.mesh,
-            in_specs=(P(axes), P(axes), P(axes, None)),
-            out_specs=(P(None, None, None, None) if split
-                       else P(*axes, None, None)),
-            check_vma=False,
-        )
-
-        if split:
-            @jax.jit
-            def run(col, val, x_pad):
-                return fn(col, val, x_pad).reshape(-1, k)[:m]
-        else:
-            unpad = self._unpad
-
-            @jax.jit
-            def run(col, val, x_pad):
-                return fn(col, val, x_pad).reshape(-1, k)[unpad]
-
-        self._runs[k] = run
-        return run
 
     def __call__(self, x, alpha: float = 1.0, beta: float = 0.0, y=None):
         m, n = self.shape
@@ -402,12 +178,8 @@ class HierSpmmPlan:
         if x.ndim != 2 or x.shape[0] != n:
             raise ValueError(f"X must have shape ({n}, k)")
         k = x.shape[1]
+        if k not in self._runs:
+            self._runs[k] = self._build_run(k)
         x_pad = jnp.zeros((self.n_pad, k), dtype=self.dtype).at[:n].set(x)
         x_pad = jax.device_put(x_pad, self._x_sharding)
-        out = self._get_run(k)(self._col, self._val, x_pad)
-        out = alpha * out
-        if y is not None:
-            out = out + beta * jnp.asarray(y, dtype=self.dtype)
-        elif beta != 0.0:
-            raise ValueError("beta != 0 requires y")
-        return out
+        return self._apply(self._runs[k], x_pad, alpha, beta, y)

@@ -25,8 +25,7 @@ def make_mesh(ndev: int | None = None) -> Mesh:
 
 def make_mesh2d(rows: int | None = None, cols: int | None = None) -> Mesh:
     """2D ('rows', 'cols') mesh. With no args, picks the most-square
-    factorization of the device count (rows <= cols, so the larger axis —
-    which carries x and the psum — gets more ICI links on typical slices)."""
+    factorization of the device count (rows <= cols)."""
     devs = jax.devices()
     if rows is None and cols is None:
         n = len(devs)

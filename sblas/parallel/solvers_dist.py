@@ -2,10 +2,10 @@
 
 The reference library's end use is driving its multi-GPU SpMV from
 CG-style iteration loops (SURVEY.md §2 C5/C11 — the kernels exist to be
-iterated). The TPU-native version keeps the WHOLE iteration on-device:
+iterated). This version keeps the WHOLE iteration on-device:
 ``sblas.solvers``'s jitted ``lax.while_loop`` bodies are reused verbatim,
 with ``apply_a = DistSpmvPlan.apply_pure`` — each iteration's SpMV runs
-the shard_map body (all_gather of x over ICI, per-chip Pallas/ELL local
+the shard_map body (all_gather of x, per-device ELL or bucket local
 compute, psum merge under nnz_split), the vector algebra runs on the same
 sharded arrays under one jit, and the dot products reduce globally via
 GSPMD-inserted collectives. One dispatch per solve; zero host↔device
@@ -28,15 +28,14 @@ from .. import solvers as _solvers
 from .spmv_dist import DistSpmvPlan
 
 
-def _as_plan(a, mesh, strategy, local_method) -> DistSpmvPlan:
+def _as_plan(a, mesh, strategy) -> DistSpmvPlan:
     if isinstance(a, DistSpmvPlan):
         return a
-    return DistSpmvPlan(a, mesh, strategy=strategy,
-                        local_method=local_method)
+    return DistSpmvPlan(a, mesh, strategy=strategy)
 
 
 def dist_cg(a, b, *, mesh=None, strategy: str = "nnz_balanced",
-            local_method: str = "auto", tol: float = 1e-6,
+            tol: float = 1e-6,
             maxiter: int = 1000, M=None, x0=None):
     """Conjugate gradient for SPD A, distributed over the 'chips' mesh.
 
@@ -44,7 +43,7 @@ def dist_cg(a, b, *, mesh=None, strategy: str = "nnz_balanced",
     across solves — partitioning/retiling is host work). Returns
     ``(x, {"iterations", "rel_residual"})`` like :func:`sblas.solvers.cg`.
     """
-    plan = _as_plan(a, mesh, strategy, local_method)
+    plan = _as_plan(a, mesh, strategy)
     m, n = plan.shape
     if m != n:
         raise ValueError("cg needs a square matrix")
@@ -62,12 +61,12 @@ def dist_cg(a, b, *, mesh=None, strategy: str = "nnz_balanced",
 
 
 def dist_gmres(a, b, *, mesh=None, strategy: str = "nnz_balanced",
-               local_method: str = "auto", tol: float = 1e-6,
+               tol: float = 1e-6,
                maxiter: int = 1000, restart: int = 30, M=None, x0=None):
     """Restarted GMRES(m) for general square A, distributed over the
     'chips' mesh (right-preconditioned; the (m+1, n) Arnoldi basis lives
     on device, sharded by GSPMD propagation)."""
-    plan = _as_plan(a, mesh, strategy, local_method)
+    plan = _as_plan(a, mesh, strategy)
     m, n = plan.shape
     if m != n:
         raise ValueError("gmres needs a square matrix")
@@ -85,10 +84,10 @@ def dist_gmres(a, b, *, mesh=None, strategy: str = "nnz_balanced",
 
 
 def dist_bicgstab(a, b, *, mesh=None, strategy: str = "nnz_balanced",
-                  local_method: str = "auto", tol: float = 1e-6,
+                  tol: float = 1e-6,
                   maxiter: int = 1000, M=None, x0=None):
     """BiCGSTAB for general square A, distributed over the 'chips' mesh."""
-    plan = _as_plan(a, mesh, strategy, local_method)
+    plan = _as_plan(a, mesh, strategy)
     m, n = plan.shape
     if m != n:
         raise ValueError("bicgstab needs a square matrix")

@@ -1,32 +1,28 @@
-"""2D-partitioned multi-chip SpMM over a ('rows', 'cols') mesh.
+"""2D-partitioned multi-device SpMM over a ('rows', 'cols') mesh.
 
-Same data flow as spmv2d (see that module's traffic analysis): chip (i, j)
-owns block A[rows_i, cols_j]; the dense RHS X lives row-sharded over the
-'cols' axis — chunk j is already on every chip of mesh column j — and the
-single collective is a psum of the (m/R, k) partial Y over 'cols'. For K
-RHS columns the 2D layout's advantage over the 1D all_gather grows K-fold:
-1D must replicate the full (n, k) X per chip, 2D moves only ~2·(m/R)·k.
+Same data flow as spmv2d (see that module's traffic analysis): device
+(i, j) owns block A[rows_i, cols_j]; the dense RHS X lives row-sharded over
+the 'cols' axis — chunk j is already on every device of mesh column j — and
+the single collective is a psum of the (m/R, k) partial Y over 'cols'. For
+K RHS columns the 2D layout's advantage over the 1D all_gather grows
+K-fold: 1D must replicate the full (n, k) X per device, 2D moves only
+~2·(m/R)·k.
 
-Local compute: the w-SELL Pallas SpMM kernel over the chip's X chunk
-(stacked to a common geometry via wsell_stack, staged as Xt[k, rows, 128]
-in VMEM) whenever the blocks are Pallas-servable and k fits VMEM; the XLA
-ELL einsum is the per-k fallback, built lazily on first use (same pattern
-as DistSpmmPlan). ``bytes_per_iter_for(k)`` reports the stream model for
-the body a given k actually runs.
+Local compute: the XLA ELL contraction, or degree buckets on skewed rows
+(:mod:`.local`).
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ..formats import CSR, INDEX_DTYPE
 from ..partition import partition_rows
-from ..retile import to_ell
+from .local import apply_rows, split_2d_blocks, stack_rows, unpad_slots
 from .mesh import make_mesh2d, rows_axis, cols_axis
 
 
@@ -37,9 +33,7 @@ def _round_up(x, m):
 class Dist2DSpmmPlan:
     """Partition + retile + shard_map SpMM executor over a 2D mesh."""
 
-    def __init__(self, a: CSR, mesh: Mesh | None = None, *,
-                 local_method: str = "auto", min_fill: float = 0.2,
-                 th: int = 1024):
+    def __init__(self, a: CSR, mesh: Mesh | None = None):
         self.mesh = mesh or make_mesh2d()
         if self.mesh.axis_names != (rows_axis, cols_axis):
             raise ValueError(
@@ -56,171 +50,44 @@ class Dist2DSpmmPlan:
 
         part = partition_rows(a, R, "nnz_balanced")
         self.nnz_balance = part.balance()
-        self._row_starts = [int(r) for r in part.row_starts]
+        row_starts = [int(r) for r in part.row_starts]
+        blocks = split_2d_blocks(part.parts, self.x_chunk, C)
+        st = stack_rows(blocks, a.dtype)
+        self.local_method = st.method
+        self.bytes_per_iter = st.bytes_per_iter
+        sh = NamedSharding(self.mesh, P(rows_axis, cols_axis))
+        r4 = lambda arr: jax.device_put(
+            arr.reshape((R, C) + arr.shape[1:]), sh)
+        self._arrs = (tuple((r4(c), r4(v)) for c, v in st.buckets),
+                      None if st.perm is None else r4(st.perm))
+        self._unpad = jnp.asarray(
+            unpad_slots(row_starts, st.out_rows).astype(INDEX_DTYPE))
+        self._x_sharding = NamedSharding(self.mesh, P(cols_axis, None))
+        out_rows = st.out_rows
 
-        from .wsell_stack import split_2d_blocks
-
-        self._blocks = split_2d_blocks(part.parts, self.x_chunk, C)
-        sh = lambda spec: NamedSharding(self.mesh, spec)
-        self._sh = sh
-
-        # w-SELL layout for the Pallas body (same stack as spmv2d);
-        # the ELL fallback is built lazily on first VMEM-bound k
-        self._stacked = None
-        self._ell_built = False
-        self.local_method = "ell"
-        if local_method in ("auto", "pallas"):
-            try:
-                from .wsell_stack import stack_wsell, unpad_slots
-
-                st = stack_wsell(self._blocks, self.x_chunk, self.dtype,
-                                 min_fill=min_fill, th=th)
-                self._stacked = st
-                r4 = lambda arr: arr.reshape((R, C) + arr.shape[1:])
-                p2 = P(rows_axis, cols_axis)
-                self._pval = jax.device_put(r4(st.val), sh(p2))
-                self._plcol = jax.device_put(r4(st.lcol), sh(p2))
-                self._pwr = jax.device_put(r4(st.wrow), sh(p2))
-                self._pob = jax.device_put(r4(st.obase), sh(p2))
-                self._pl_unpad = jnp.asarray(unpad_slots(
-                    self._row_starts, st.y_rows * st.sub
-                ).astype(INDEX_DTYPE))
-                self._pallas_bytes = st.bytes_per_iter * R * C
-                self.bytes_per_iter = self._pallas_bytes
-                self.local_method = "pallas"
-            except ValueError:
-                if local_method == "pallas":
-                    raise
-        if self.local_method == "ell":
-            self._build_ell()
-            self.bytes_per_iter = self._ell_bytes
-        self._x_sharding = sh(P(cols_axis, None))
-        self._pallas_runs = {}
-
-    def bytes_per_iter_for(self, k: int) -> int:
-        """Stream-bytes model for the body a k-column call actually runs."""
-        if self.local_method == "pallas" and self._pallas_fits(k):
-            return self._pallas_bytes
-        self._build_ell()
-        return self._ell_bytes
-
-    def _build_ell(self):
-        if self._ell_built:
-            return
-        from .wsell_stack import unpad_slots
-
-        R, C = self.grid
-        ells = [to_ell(b) for b in self._blocks]
-        width = max(max(e.width for e in ells), 1)
-        rows_pad = max(_round_up(max(e.m, 1), 8) for e in ells)
-        col = np.zeros((R, C, rows_pad, width), dtype=INDEX_DTYPE)
-        val = np.zeros((R, C, rows_pad, width), dtype=self.dtype)
-        for i in range(R):
-            for j in range(C):
-                e = ells[i * C + j]
-                col[i, j, : e.col.shape[0], : e.width] = e.col
-                val[i, j, : e.val.shape[0], : e.width] = e.val
-        self.rows_pad = rows_pad
-        self._col = jax.device_put(col, self._sh(P(rows_axis, cols_axis)))
-        self._val_ell = jax.device_put(val,
-                                       self._sh(P(rows_axis, cols_axis)))
-        self._ell_bytes = col.size * (np.dtype(self.dtype).itemsize + 4)
-        self._ell_unpad = jnp.asarray(unpad_slots(
-            self._row_starts, rows_pad).astype(INDEX_DTYPE))
-        self._build_fn_ell()
-        self._ell_built = True
-
-    def _build_fn_ell(self):
-        def body(col, val, x_shard):
-            # col/val: (1, 1, rows_pad, W); x_shard: (x_chunk, k)
+        def body(arrs, x_shard):
+            # arrays: (1, 1, ...) this device's block; x_shard: (x_chunk, k)
+            buckets, perm = jax.tree.map(lambda t: t[0], arrs)
             with jax.named_scope("kernel"):
-                y_loc = jnp.einsum("rw,rwk->rk", val[0, 0],
-                                   x_shard[col[0, 0]])
+                y_loc = apply_rows(buckets, perm, x_shard, out_rows)
             with jax.named_scope("collective"):
                 y = lax.psum(y_loc, cols_axis)
             return y[None]
 
         fn = shard_map(
             body, mesh=self.mesh,
-            in_specs=(P(rows_axis, cols_axis), P(rows_axis, cols_axis),
-                      P(cols_axis, None)),
+            in_specs=(P(rows_axis, cols_axis), P(cols_axis, None)),
             out_specs=P(rows_axis, None, None),
             check_vma=False,
         )
-        unpad = self._ell_unpad
+        unpad = self._unpad
 
         @jax.jit
-        def run(col, val, x_pad):
-            y = fn(col, val, x_pad)  # (R, rows_pad, k)
+        def run(arrs, x_pad):
+            y = fn(arrs, x_pad)  # (R, out_rows, k)
             return y.reshape(-1, y.shape[-1])[unpad]
 
         self._run = run
-
-    def _pallas_fits(self, k: int) -> bool:
-        from .wsell_stack import pallas_spmm_fits
-
-        st = self._stacked
-        return st is not None and pallas_spmm_fits(st, k)
-
-    def _get_pallas_run(self, k: int):
-        if k in self._pallas_runs:
-            return self._pallas_runs[k]
-        import jax.experimental.pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        from ..ops.kernels.spmm_pallas import _kernel
-        from ..retile_wsell import LANES
-        from ..utils.backend import on_cpu
-
-        st = self._stacked
-        R, _ = self.grid
-        xpad = st.x2d_rows * LANES - self.x_chunk
-
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(st.num_tiles,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # Xt whole
-                pl.BlockSpec((st.th, LANES), lambda t, wr, ob: (t, 0)),
-                pl.BlockSpec((st.th, LANES), lambda t, wr, ob: (t, 0)),
-            ],
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        )
-        call = pl.pallas_call(
-            _kernel(st.th, st.sub, st.nwin, st.wgroup, k),
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((st.y_rows, k * st.sub),
-                                           jnp.float32),
-            interpret=on_cpu(),
-        )
-        x2d_rows, sub, y_rows = st.x2d_rows, st.sub, st.y_rows
-
-        def body(wr, ob, val, lcol, x_shard):
-            xt = jnp.pad(x_shard.astype(jnp.float32), ((0, xpad), (0, 0)))
-            xt = xt.reshape(x2d_rows, LANES, k).transpose(2, 0, 1)
-            with jax.named_scope("kernel"):
-                y = call(wr[0, 0], ob[0, 0], xt, val[0, 0], lcol[0, 0])
-            with jax.named_scope("collective"):
-                y = lax.psum(y, cols_axis)
-            return y[None]
-
-        fn = shard_map(
-            body, mesh=self.mesh,
-            in_specs=(P(rows_axis, cols_axis),) * 4 + (P(cols_axis, None),),
-            out_specs=P(rows_axis, None, None),
-            check_vma=False,
-        )
-        unpad = self._pl_unpad
-        dtype = self.dtype
-
-        @jax.jit
-        def run(wr, ob, val, lcol, x_pad):
-            y = fn(wr, ob, val, lcol, x_pad)  # (R, y_rows, k*sub)
-            y = y.reshape(R * y_rows, k, sub).transpose(0, 2, 1)
-            return y.reshape(-1, k)[unpad].astype(dtype)
-
-        self._pallas_runs[k] = run
-        return run
 
     def __call__(self, x, alpha: float = 1.0, beta: float = 0.0, y=None):
         m, n = self.shape
@@ -230,13 +97,7 @@ class Dist2DSpmmPlan:
         k = x.shape[1]
         x_pad = jnp.zeros((self.n_pad, k), dtype=self.dtype).at[:n].set(x)
         x_pad = jax.device_put(x_pad, self._x_sharding)
-        if self.local_method == "pallas" and self._pallas_fits(k):
-            run = self._get_pallas_run(k)
-            out = run(self._pwr, self._pob, self._pval, self._plcol, x_pad)
-        else:
-            self._build_ell()
-            out = self._run(self._col, self._val_ell, x_pad)
-        out = alpha * out
+        out = alpha * self._run(self._arrs, x_pad)
         if y is not None:
             out = out + beta * jnp.asarray(y, dtype=self.dtype)
         elif beta != 0.0:

@@ -1,453 +1,89 @@
-"""Multi-chip SpMM over the 1D 'chips' mesh (BASELINE config #5 weak scaling).
+"""Multi-device SpMM over the 1D 'chips' mesh (BASELINE config #5).
 
 Same partition/collective structure as spmv_dist: X (n, k) is row-sharded,
-all-gathered over ICI, each chip runs its local contraction, and Y comes out
-row-sharded. The local contraction is the Pallas w-SELL SpMM kernel (the
-single-chip fast path) whenever the shards are Pallas-servable and the
-(k-dependent) VMEM staging fits; otherwise the chunked XLA ELL body."""
+all-gathered, each device runs its local K-wide contraction (ELL, or
+degree buckets on skewed rows; :mod:`.local`), and Y comes out
+row-sharded."""
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..formats import CSR, INDEX_DTYPE
-from ..partition import partition_rows, partition_nnz_split
+from ..formats import CSR
+from .local import apply_rows, shard_rows
 from .mesh import make_mesh, chips_axis
-from .spmv_dist import _stack_ell, _round_up
+from .spmv_dist import _round_up
 
 
 class DistSpmmPlan:
+    """Row-sharded X, all_gather, local K-wide product, row-sharded Y
+    (or a psum merge under ``nnz_split``)."""
+
     def __init__(self, a: CSR, mesh: Mesh | None = None, *,
-                 strategy: str = "nnz_balanced", row_block: int = 2048,
-                 local_method: str = "auto", min_fill: float = 0.2,
-                 th: int = 1024):
+                 strategy: str = "nnz_balanced"):
         self.mesh = mesh or make_mesh()
         ndev = self.mesh.devices.size
         self.ndev = ndev
         self.shape = a.shape
         self.dtype = a.dtype
         self.strategy = strategy
-        self.row_block = row_block
-        self._min_fill = min_fill
         m, n = a.shape
         self.x_chunk = _round_up(max(-(-n // ndev), 1), 8)
         self.n_pad = self.x_chunk * ndev
 
-        self._split = strategy == "nnz_split"
-        if self._split:
-            # equal-nnz ranges (rows may be cut): express each shard in
-            # GLOBAL row coordinates so the partial Y rows psum-merge,
-            # exactly like the nnz_split SpMV bodies (spmv_dist.py)
-            from ..formats import COO, coo_to_csr
-
-            npart = partition_nnz_split(a, ndev)
-            parts = []
-            for d, p in enumerate(npart.parts):
-                coo = p.tocoo()
-                r0 = int(npart.first_row[d])
-                parts.append(coo_to_csr(COO(
-                    (m, n), coo.row.astype(np.int64) + r0, coo.col, coo.data
-                )))
-
-            class _P:  # duck-typed partition holder for the shared init path
-                pass
-
-            part = _P()
-            part.parts = tuple(parts)
-            self._row_starts = None
-        else:
-            part = partition_rows(a, ndev, strategy)
-            self._row_starts = [int(r) for r in part.row_starts]
-        sh = lambda spec: NamedSharding(self.mesh, spec)
-        self._sh = sh
-
-        self._stacked = None
-        self.local_method = None
-        if local_method in ("auto", "bsr_t"):
-            # round-4 fast path: transposed dense-block BSR local bodies
-            # (single-chip DMA-roofline kernel, e13b) — panel-clustered
-            # shards only; falls through to w-SELL/PSEG/ELL otherwise
-            try:
-                from .wsell_stack import stack_bsr_t
-
-                st = stack_bsr_t(part.parts, self.n_pad, a.dtype)
-                self._bsrt = st
-                self._bat = jax.device_put(st.at, sh(P(chips_axis)))
-                self._bbrow = jax.device_put(st.brow, sh(P(chips_axis)))
-                self._bbcol = jax.device_put(st.bcol, sh(P(chips_axis)))
-                from .wsell_stack import unpad_slots
-
-                if self._split:
-                    self._bunpad = jnp.arange(m, dtype=INDEX_DTYPE)
-                else:
-                    self._bunpad = jnp.asarray(
-                        unpad_slots(self._row_starts,
-                                    st.num_brows * 128).astype(INDEX_DTYPE))
-                self.local_method = "bsr_t"
-                self.bytes_per_iter_nx = st.bytes_per_iter * ndev
-            except ValueError:
-                if local_method == "bsr_t":
-                    raise
-        if self.local_method is None and local_method in ("auto", "pallas"):
-            try:
-                from .wsell_stack import stack_wsell
-
-                st = stack_wsell(part.parts, self.n_pad, a.dtype,
-                                 min_fill=min_fill, th=th)
-                self._stacked = st
-                self._wr = jax.device_put(st.wrow, sh(P(chips_axis)))
-                self._ob = jax.device_put(st.obase, sh(P(chips_axis)))
-                self._pval = jax.device_put(st.val, sh(P(chips_axis)))
-                self._plcol = jax.device_put(st.lcol, sh(P(chips_axis)))
-                if self._split:
-                    self._punpad = jnp.arange(m, dtype=INDEX_DTYPE)
-                else:
-                    slot = np.empty(m, dtype=np.int64)
-                    for d in range(ndev):
-                        r0, r1 = self._row_starts[d], self._row_starts[d + 1]
-                        slot[r0:r1] = (d * st.y_rows * st.sub
-                                       + np.arange(r1 - r0))
-                    self._punpad = jnp.asarray(slot.astype(INDEX_DTYPE))
-                self.local_method = "pallas"
-                self.bytes_per_iter_nx = st.bytes_per_iter * ndev
-            except ValueError:
-                if local_method == "pallas":
-                    raise
-        if self.local_method is None and local_method in ("auto", "pseg"):
-            # scattered/power-law shards: hub-relabeled PSEG (see spmv_dist)
-            try:
-                self._init_pseg(a, part, sh)
-                self.local_method = "pseg"
-            except ValueError:
-                if local_method == "pseg":
-                    raise
-        self._ell_parts = part.parts  # kept for lazy ELL fallback
-        self._ell_built = False
-        if self.local_method is None:
-            self._build_ell(a)
-            self.local_method = "ell"
-
-        self._x_sharding = sh(P(chips_axis, None))
+        sr = shard_rows(a, ndev, strategy,
+                        NamedSharding(self.mesh, P(chips_axis)))
+        self._split = sr.unpad is None
+        self._unpad = sr.unpad
+        self.local_method = sr.method
+        self.bytes_per_iter_nx = sr.bytes_per_iter
+        self._out_rows = sr.out_rows
+        self._arrs = sr.arrs
+        self._x_sharding = NamedSharding(self.mesh, P(chips_axis, None))
         self._runs = {}
 
-    def _init_pseg(self, a, part, sh):
-        from .wsell_stack import hub_stack_pseg, hub_stack_pseg_split
-
-        if self._split:
-            st, colperm = hub_stack_pseg_split(a, self.ndev, self.n_pad,
-                                               min_fill=self._min_fill)
-        else:
-            st, colperm = hub_stack_pseg(a, self._row_starts, self.n_pad,
-                                         min_fill=self._min_fill)
-        self._psk = st
-        self._pseg_colperm = colperm
-        self.bytes_per_iter_nx = st.bytes_per_iter * self.ndev
-        self._kwr = jax.device_put(st.wrow, sh(P(chips_axis)))
-        self._kob = jax.device_put(st.oblk, sh(P(chips_axis)))
-        self._kval = jax.device_put(st.val, sh(P(chips_axis)))
-        self._klcol = jax.device_put(st.lcol, sh(P(chips_axis)))
-        self._ktsb = jax.device_put(st.tsb, sh(P(chips_axis)))
-        self._ksrow = jax.device_put(st.s_rows, sh(P(chips_axis)))
-        self._kscol = jax.device_put(st.s_cols, sh(P(chips_axis)))
-        self._ksval = jax.device_put(st.s_vals, sh(P(chips_axis)))
-        self._kunpad = jnp.asarray(st.rowperm_inv.astype(INDEX_DTYPE))
-
-    def _build_ell(self, a: CSR | None = None):
-        if self._ell_built:
-            return
-        m, n = self.shape
-        ndev = self.ndev
-        dtype = self.dtype
-        col, val, rows_pad, width = _stack_ell(self._ell_parts, n, dtype)
-        self.rows_pad = rows_pad
-        if self._split:
-            # global-shape parts: rows already global, psum merges partials
-            self._unpad = jnp.arange(m, dtype=np.int32)
-        else:
-            slot = np.empty(m, dtype=np.int64)
-            for d in range(ndev):
-                r0, r1 = self._row_starts[d], self._row_starts[d + 1]
-                slot[r0:r1] = d * rows_pad + np.arange(r1 - r0)
-            self._unpad = jnp.asarray(slot.astype(np.int32))
-        self._col = jax.device_put(col, self._sh(P(chips_axis)))
-        self._val = jax.device_put(val, self._sh(P(chips_axis)))
-        self._ell_bytes_nx = col.size * (dtype.itemsize + 4)
-        if self.local_method in (None, "ell"):
-            # primary ELL path (local_method set right after this call);
-            # when this build is only the lazy large-k fallback of a
-            # pallas/pseg plan, don't clobber that plan's stream model
-            self.bytes_per_iter_nx = self._ell_bytes_nx
-        self._ell_built = True
-
-    def _pallas_fits(self, k: int) -> bool:
-        from .wsell_stack import pallas_spmm_fits
-
-        st = self._stacked
-        return st is not None and pallas_spmm_fits(st, k)
-
     def _get_run(self, k: int):
-        from .wsell_stack import bsrt_spmm_fits
-
         if k in self._runs:
             return self._runs[k]
-        if self.local_method == "bsr_t" and bsrt_spmm_fits(self._bsrt, k):
-            run = ("bsr_t", self._build_run_bsrt(k))
-        elif self.local_method == "pallas" and self._pallas_fits(k):
-            run = ("pallas", self._build_run_pallas(k))
-        elif self.local_method == "pseg":
-            run = ("pseg", self._build_run_pseg(k))
-        else:
-            if self.local_method in ("pallas", "bsr_t"):
-                self._build_ell()  # VMEM-bound k: lazy XLA fallback
-            run = ("ell", self._build_run_ell(k))
-        self._runs[k] = run
-        return run
-
-    def _build_run_bsrt(self, k: int):
-        import jax.experimental.pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        from ..ops.kernels.spmm_bsr_pallas import _kernel_t
-        from ..utils.backend import on_cpu
-
-        st = self._bsrt
-        kp = -(-k // 8) * 8
-        n_pad = self.n_pad
-        xpad = st.num_bcols * 128 - n_pad
-        call = pl.pallas_call(
-            _kernel_t(st.tb, kp, "bf16x3"),
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=2,
-                grid=(st.num_tiles,),
-                in_specs=[
-                    pl.BlockSpec(memory_space=pltpu.VMEM),  # Xt whole
-                    pl.BlockSpec((st.tb * 128, 128),
-                                 lambda t, br_, bc_: (t, 0)),
-                ],
-                out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            ),
-            out_shape=jax.ShapeDtypeStruct((kp, st.num_brows * 128),
-                                           jnp.float32),
-            interpret=on_cpu(),
-        )
-
+        m = self.shape[0]
+        out_rows = self._out_rows
         split = self._split
 
-        def body(brow, bcol, at, x_shard):
+        def body(arrs, x_shard):
+            buckets, perm = arrs
             with jax.named_scope("collective"):
                 x_full = lax.all_gather(x_shard, chips_axis, tiled=True)
-            xt = jnp.pad(x_full.astype(jnp.float32),
-                         ((0, xpad), (0, kp - k))).T      # (kp, cols)
             with jax.named_scope("kernel"):
-                yt = call(brow[0], bcol[0], xt, at[0])
+                y = apply_rows(buckets, perm, x_full, out_rows)
             if split:
                 with jax.named_scope("collective"):
-                    yt = lax.psum(yt, chips_axis)
-            return yt.T[None]                             # (1, rows, kp)
-
-        fn = shard_map(
-            body, mesh=self.mesh,
-            in_specs=(P(chips_axis),) * 3 + (P(chips_axis, None),),
-            out_specs=(P(None, None, None) if split
-                       else P(chips_axis, None, None)),
-            check_vma=False,
-        )
-        unpad = self._bunpad
-        dtype = self.dtype
-
-        @jax.jit
-        def run(brow, bcol, at, x_pad):
-            y = fn(brow, bcol, at, x_pad)   # (ndev, rows, kp)
-            return y.reshape(-1, kp)[unpad, :k].astype(dtype)
-
-        return run
-
-    def _build_run_pseg(self, k: int):
-        import jax.experimental.pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        from ..ops.kernels.spmm_pseg import _kernel
-        from ..ops.kernels.spmv_pseg import _VMEM_X_LIMIT, _VMEM_Y_LIMIT
-        from ..retile_pseg import LANES
-        from ..utils.backend import on_cpu
-
-        m, n = self.shape
-        st = self._psk
-        n_pad = self.n_pad
-        xpad = st.x2d_rows * LANES - n_pad
-        by_y = max(_VMEM_Y_LIMIT // (st.y_rows * LANES * 4), 1)
-        by_x = max(_VMEM_X_LIMIT // (st.x2d_rows * LANES * 4), 1)
-        kc_max = int(min(by_y, by_x, 8, k))
-
-        def make_fn(kc):
-            grid_spec = pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=2,
-                grid=(st.num_tiles,),
-                in_specs=[
-                    pl.BlockSpec(memory_space=pltpu.VMEM),  # Xt whole
-                    pl.BlockSpec((st.th, LANES), lambda t, wr, ob: (t, 0)),
-                    pl.BlockSpec((st.th, LANES), lambda t, wr, ob: (t, 0)),
-                    pl.BlockSpec((st.th, LANES), lambda t, wr, ob: (t, 0)),
-                ],
-                out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            )
-            call = pl.pallas_call(
-                _kernel(st.th, kc, st.y_rows),
-                grid_spec=grid_spec,
-                out_shape=jax.ShapeDtypeStruct((kc * st.y_rows, LANES),
-                                               jnp.float32),
-                interpret=on_cpu(),
-            )
-
-            split = self._split
-
-            def body(wr, ob, val, lcol, tsb, srow, scol, sval, x_shard):
-                with jax.named_scope("collective"):
-                    x_full = lax.all_gather(x_shard, chips_axis, tiled=True)
-                xt = jnp.pad(x_full.astype(jnp.float32), ((0, xpad), (0, 0)))
-                xt = xt.reshape(st.x2d_rows, LANES, kc).transpose(2, 0, 1)
-                with jax.named_scope("kernel"):
-                    y = call(wr[0], ob[0], xt, val[0], lcol[0], tsb[0])
-                y = y.reshape(kc, st.y_rows * LANES).T   # (yflat, kc)
-                y = y.at[srow[0], :].add(
-                    sval[0][:, None] * x_full[scol[0], :]
-                )
-                if split:
-                    with jax.named_scope("collective"):
-                        y = lax.psum(y, chips_axis)
-                return y[None]
-
-            return shard_map(
-                body, mesh=self.mesh,
-                in_specs=(P(chips_axis),) * 8 + (P(chips_axis, None),),
-                out_specs=(P(None, None, None) if split
-                           else P(chips_axis, None, None)),
-                check_vma=False,
-            )
-
-        nfull, rem = divmod(k, kc_max)
-        fn_kc = make_fn(kc_max)
-        fn_rem = make_fn(rem) if rem else None
-        unpad = self._kunpad
-        dtype = self.dtype
-
-        @jax.jit
-        def run(wr, ob, val, lcol, tsb, srow, scol, sval, x_pad):
-            outs = []
-            for i in range(nfull):
-                outs.append(fn_kc(wr, ob, val, lcol, tsb, srow, scol, sval,
-                                  x_pad[:, i * kc_max:(i + 1) * kc_max]))
-            if fn_rem is not None:
-                outs.append(fn_rem(wr, ob, val, lcol, tsb, srow, scol, sval,
-                                   x_pad[:, nfull * kc_max:]))
-            y = jnp.concatenate(outs, axis=2)  # (ndev, yflat, k)
-            return y.reshape(-1, k)[unpad].astype(dtype)
-
-        return run
-
-    def _build_run_pallas(self, k: int):
-        import jax.experimental.pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        from ..ops.kernels.spmm_pallas import _kernel
-        from ..retile_wsell import LANES
-        from ..utils.backend import on_cpu
-
-        m, n = self.shape
-        st = self._stacked
-        n_pad = self.n_pad
-        xpad = st.x2d_rows * LANES - n_pad
-
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(st.num_tiles,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # Xt whole
-                pl.BlockSpec((st.th, LANES), lambda t, wr, ob: (t, 0)),
-                pl.BlockSpec((st.th, LANES), lambda t, wr, ob: (t, 0)),
-            ],
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        )
-        call = pl.pallas_call(
-            _kernel(st.th, st.sub, st.nwin, st.wgroup, k),
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((st.y_rows, k * st.sub),
-                                           jnp.float32),
-            interpret=on_cpu(),
-        )
-
-        split = self._split
-
-        def body(wr, ob, val, lcol, x_shard):
-            x_full = lax.all_gather(x_shard, chips_axis, tiled=True)  # (n_pad, k)
-            xt = jnp.pad(x_full.astype(jnp.float32), ((0, xpad), (0, 0)))
-            xt = xt.reshape(st.x2d_rows, LANES, k).transpose(2, 0, 1)
-            y = call(wr[0], ob[0], xt, val[0], lcol[0])  # (y_rows, k*sub)
-            if split:
-                y = lax.psum(y, chips_axis)
+                    y = lax.psum(y, chips_axis)
             return y[None]
 
         fn = shard_map(
             body, mesh=self.mesh,
-            in_specs=(P(chips_axis),) * 4 + (P(chips_axis, None),),
-            out_specs=(P(None, None, None) if split
-                       else P(chips_axis, None, None)),
-            check_vma=False,
-        )
-        unpad = self._punpad
-        dtype = self.dtype
-        y_rows, sub = st.y_rows, st.sub
-
-        @jax.jit
-        def run(wr, ob, val, lcol, x_pad):
-            y = fn(wr, ob, val, lcol, x_pad)  # (ndev, y_rows, k*sub)
-            y = y.reshape(-1, y_rows, k, sub).transpose(0, 1, 3, 2)
-            return y.reshape(-1, k)[unpad].astype(dtype)
-
-        return run
-
-    def _build_run_ell(self, k: int):
-        m, n = self.shape
-        rows_pad = self.rows_pad
-        blk = min(_round_up(self.row_block, 8), rows_pad)
-        while rows_pad % blk:
-            blk -= 8
-        nblk = rows_pad // blk
-        unpad = self._unpad
-
-        split = self._split
-
-        def body(col, val, x_shard):
-            x_full = lax.all_gather(x_shard, chips_axis, tiled=True)
-
-            def f(i):
-                c = lax.dynamic_slice_in_dim(col[0], i * blk, blk)
-                v = lax.dynamic_slice_in_dim(val[0], i * blk, blk)
-                return jnp.einsum("rw,rwk->rk", v, x_full[c])
-
-            y = lax.map(f, jnp.arange(nblk)).reshape(rows_pad, k)
-            if split:
-                y = lax.psum(y, chips_axis)
-            return y[None]
-
-        fn = shard_map(
-            body, mesh=self.mesh,
-            in_specs=(P(chips_axis), P(chips_axis), P(chips_axis, None)),
+            in_specs=(P(chips_axis), P(chips_axis, None)),
             out_specs=(P(None, None, None) if split
                        else P(chips_axis, None, None)),
             check_vma=False,
         )
 
-        @jax.jit
-        def run(col, val, x_pad):
-            y = fn(col, val, x_pad)
-            return y.reshape(-1, k)[unpad]
+        if split:
+            @jax.jit
+            def run(arrs, x_pad):
+                return fn(arrs, x_pad).reshape(-1, k)[:m]
+        else:
+            unpad = self._unpad
 
+            @jax.jit
+            def run(arrs, x_pad):
+                return fn(arrs, x_pad).reshape(-1, k)[unpad]
+
+        self._runs[k] = run
         return run
 
     def __call__(self, x, alpha: float = 1.0, beta: float = 0.0, y=None):
@@ -456,23 +92,9 @@ class DistSpmmPlan:
         if x.ndim != 2 or x.shape[0] != n:
             raise ValueError(f"X must have shape ({n}, k)")
         k = x.shape[1]
-        if self.local_method == "pseg":
-            x = jnp.asarray(np.asarray(x)[self._pseg_colperm, :],
-                            dtype=self.dtype)
         x_pad = jnp.zeros((self.n_pad, k), dtype=self.dtype).at[:n].set(x)
         x_pad = jax.device_put(x_pad, self._x_sharding)
-        kind, run = self._get_run(k)
-        if kind == "bsr_t":
-            out = run(self._bbrow, self._bbcol, self._bat, x_pad)
-        elif kind == "pallas":
-            out = run(self._wr, self._ob, self._pval, self._plcol, x_pad)
-        elif kind == "pseg":
-            out = run(self._kwr, self._kob, self._kval, self._klcol,
-                      self._ktsb, self._ksrow, self._kscol, self._ksval,
-                      x_pad)
-        else:
-            out = run(self._col, self._val, x_pad)
-        out = alpha * out
+        out = alpha * self._get_run(k)(self._arrs, x_pad)
         if y is not None:
             out = out + beta * jnp.asarray(y, dtype=self.dtype)
         elif beta != 0.0:

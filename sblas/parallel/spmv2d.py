@@ -1,39 +1,37 @@
-"""2D-partitioned multi-chip SpMV over a ('rows', 'cols') mesh.
+"""2D-partitioned multi-device SpMV over a ('rows', 'cols') mesh.
 
-The 1D plans replicate x on every chip via ``all_gather`` — per-chip ICI
+The 1D plans replicate x on every device via ``all_gather`` — per-device
 traffic grows with the full problem size n, which is what caps 1D scaling
 (SURVEY.md §5 "long-context analogue"). The 2D plan is the SpMV analogue
-of A-stationary 2D matmul sharding: chip (i, j) owns block
+of A-stationary 2D matmul sharding: device (i, j) owns block
 A[rows_i, cols_j], x lives sharded over the 'cols' axis (chunk j on every
-chip of column j — already where it's needed, no gather at all), and the
+device of column j — already where it's needed, no gather at all), and the
 single collective is a ``psum`` of the (m/R)-length partial y over 'cols'.
 
-Per-chip ICI bytes: 1D all_gather moves ~n per chip; 2D psum moves
-~2·(C-1)/C · m/R per chip (reduce-scatter + all-gather lowering). For a
-square matrix on a P-chip mesh with R=C=√P that is ~2·m/√P — the 2D plan's
-traffic *shrinks* as the mesh grows, which is what makes weak scaling to
-v5e-16/32 (BASELINE config #5) tractable for matrices whose x no longer
-fits per chip.
+Per-device bytes: 1D all_gather moves ~n per device; 2D psum moves
+~2·(C-1)/C · m/R per device (reduce-scatter + all-gather lowering). For a
+square matrix on a P-device mesh with R=C=√P that is ~2·m/√P — the 2D
+plan's traffic *shrinks* as the mesh grows, which keeps weak scaling
+(BASELINE config #5) tractable for matrices whose x no longer fits one
+device.
 
 Partitioning: rows nnz-balanced into R groups (reference strategy); columns
-split evenly in 128-aligned chunks so the x sharding is uniform (and the
-Pallas x2d window base is chunk-local). Local compute is the single-chip
-w-SELL Pallas kernel whenever the blocks are Pallas-servable (via
-wsell_stack's forced common geometry), else the XLA ELL gather.
+split evenly in 128-aligned chunks so the x sharding is uniform. Local
+compute is the XLA ELL gather, or degree buckets on skewed rows
+(:mod:`.local`).
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ..formats import CSR, INDEX_DTYPE
 from ..partition import partition_rows
-from ..retile import to_ell
+from .local import apply_rows, split_2d_blocks, stack_rows, unpad_slots
 from .mesh import make_mesh2d, rows_axis, cols_axis
 
 
@@ -44,9 +42,7 @@ def _round_up(x, m):
 class Dist2DSpmvPlan:
     """Partition + retile + shard_map executor over a 2D mesh."""
 
-    def __init__(self, a: CSR, mesh: Mesh | None = None, *,
-                 local_method: str = "auto", min_fill: float = 0.2,
-                 th: int = 1024):
+    def __init__(self, a: CSR, mesh: Mesh | None = None):
         self.mesh = mesh or make_mesh2d()
         if self.mesh.axis_names != (rows_axis, cols_axis):
             raise ValueError(
@@ -64,156 +60,46 @@ class Dist2DSpmvPlan:
         part = partition_rows(a, R, "nnz_balanced")
         self.nnz_balance = part.balance()
         row_starts = [int(r) for r in part.row_starts]
-        self._row_starts = row_starts
 
         # block (i, j): rows_i x [j*x_chunk, (j+1)*x_chunk), local col idx
-        from .wsell_stack import split_2d_blocks
-
         blocks = split_2d_blocks(part.parts, self.x_chunk, C)
-
-        sh = lambda spec: NamedSharding(self.mesh, spec)
-        self.local_method = None
-        if local_method in ("auto", "pallas"):
-            try:
-                self._init_pallas(blocks, sh, min_fill=min_fill, th=th)
-                self.local_method = "pallas"
-            except ValueError:
-                if local_method == "pallas":
-                    raise
-        if self.local_method is None:
-            self._init_ell(blocks, sh, a)
-            self.local_method = "ell"
-
-        self._x_sharding = sh(P(cols_axis))
-        self._build_fn()
-
-    # ---- layouts ----
-
-    def _init_pallas(self, blocks, sh, *, min_fill, th):
-        from .wsell_stack import stack_wsell
-
-        R, C = self.grid
-        st = stack_wsell(blocks, self.x_chunk, self.dtype,
-                         min_fill=min_fill, th=th)
-        self._stacked = st
-        self.bytes_per_iter = st.bytes_per_iter * R * C
-        r4 = lambda arr: arr.reshape((R, C) + arr.shape[1:])
-        self._val = jax.device_put(r4(st.val), sh(P(rows_axis, cols_axis)))
-        self._lcol = jax.device_put(r4(st.lcol), sh(P(rows_axis, cols_axis)))
-        self._wr = jax.device_put(r4(st.wrow), sh(P(rows_axis, cols_axis)))
-        self._ob = jax.device_put(r4(st.obase), sh(P(rows_axis, cols_axis)))
-        self._set_unpad(st.y_rows * st.sub)
-
-    def _init_ell(self, blocks, sh, a):
-        R, C = self.grid
-        ells = [to_ell(b) for b in blocks]
-        width = max(max(e.width for e in ells), 1)
-        rows_pad = max(_round_up(max(e.m, 1), 8) for e in ells)
-        col = np.zeros((R, C, rows_pad, width), dtype=INDEX_DTYPE)
-        val = np.zeros((R, C, rows_pad, width), dtype=a.dtype)
-        for i in range(R):
-            for j in range(C):
-                e = ells[i * C + j]
-                col[i, j, : e.col.shape[0], : e.width] = e.col
-                val[i, j, : e.val.shape[0], : e.width] = e.val
-        self.rows_pad = rows_pad
-        self._col = jax.device_put(col, sh(P(rows_axis, cols_axis)))
-        self._val = jax.device_put(val, sh(P(rows_axis, cols_axis)))
-        self.bytes_per_iter = col.size * (a.data.itemsize + 4)
-        self._set_unpad(rows_pad)
-
-    def _set_unpad(self, stride):
-        from .wsell_stack import unpad_slots
-
+        st = stack_rows(blocks, a.dtype)
+        self.local_method = st.method
+        self.bytes_per_iter = st.bytes_per_iter
+        sh = NamedSharding(self.mesh, P(rows_axis, cols_axis))
+        r4 = lambda arr: jax.device_put(
+            arr.reshape((R, C) + arr.shape[1:]), sh)
+        self._arrs = (tuple((r4(c), r4(v)) for c, v in st.buckets),
+                      None if st.perm is None else r4(st.perm))
         self._unpad = jnp.asarray(
-            unpad_slots(self._row_starts, stride).astype(INDEX_DTYPE))
+            unpad_slots(row_starts, st.out_rows).astype(INDEX_DTYPE))
+        self._x_sharding = NamedSharding(self.mesh, P(cols_axis))
+        self._build_fn(st.out_rows)
 
-    # ---- executors ----
-
-    def _build_fn(self):
-        if self.local_method == "pallas":
-            self._build_fn_pallas()
-        else:
-            self._build_fn_ell()
-
-    def _build_fn_ell(self):
-        def body(col, val, x_shard):
-            # col/val: (1, 1, rows_pad, W); x_shard: (x_chunk,) — this
-            # chip's column chunk, no gather needed
+    def _build_fn(self, out_rows: int):
+        def body(arrs, x_shard):
+            # arrays: (1, 1, ...) this device's block; x_shard: (x_chunk,)
+            # — this device's column chunk, no gather needed
+            buckets, perm = jax.tree.map(lambda t: t[0], arrs)
             with jax.named_scope("kernel"):
-                y_loc = jnp.sum(val[0, 0] * x_shard[col[0, 0]], axis=1)
+                y_loc = apply_rows(buckets, perm, x_shard, out_rows)
             with jax.named_scope("collective"):
                 y = lax.psum(y_loc, cols_axis)
             return y[None]
 
         fn = shard_map(
             body, mesh=self.mesh,
-            in_specs=(P(rows_axis, cols_axis), P(rows_axis, cols_axis),
-                      P(cols_axis)),
+            in_specs=(P(rows_axis, cols_axis), P(cols_axis)),
             out_specs=P(rows_axis, None),
             check_vma=False,
         )
         unpad = self._unpad
 
         @jax.jit
-        def run(col, val, x_pad):
-            y = fn(col, val, x_pad)  # (R, rows_pad)
-            return y.reshape(-1)[unpad]
+        def run(arrs, x_pad):
+            return fn(arrs, x_pad).reshape(-1)[unpad]   # (R, out_rows)
 
         self._run = run
-
-    def _build_fn_pallas(self):
-        import jax.experimental.pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        from ..ops.kernels.spmv_pallas import _kernel
-        from ..retile_wsell import LANES
-        from ..utils.backend import on_cpu
-
-        st = self._stacked
-        xpad = st.x2d_rows * LANES - self.x_chunk
-
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(st.num_tiles,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # x2d whole
-                pl.BlockSpec((st.th, LANES), lambda t, wr, ob: (t, 0)),
-                pl.BlockSpec((st.th, LANES), lambda t, wr, ob: (t, 0)),
-            ],
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        )
-        call = pl.pallas_call(
-            _kernel(st.th, st.sub, st.nwin, st.wgroup),
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((st.y_rows, st.sub), jnp.float32),
-            interpret=on_cpu(),
-        )
-
-        def body(wr, ob, val, lcol, x_shard):
-            x2d = jnp.pad(x_shard.astype(jnp.float32),
-                          (0, xpad)).reshape(st.x2d_rows, LANES)
-            with jax.named_scope("kernel"):
-                y = call(wr[0, 0], ob[0, 0], x2d, val[0, 0], lcol[0, 0])
-            with jax.named_scope("collective"):
-                y = lax.psum(y, cols_axis)
-            return y[None]
-
-        fn = shard_map(
-            body, mesh=self.mesh,
-            in_specs=(P(rows_axis, cols_axis),) * 4 + (P(cols_axis),),
-            out_specs=P(rows_axis, None, None),
-            check_vma=False,
-        )
-        unpad = self._unpad
-        dtype = self.dtype
-
-        @jax.jit
-        def run(wr, ob, val, lcol, x_pad):
-            y = fn(wr, ob, val, lcol, x_pad)  # (R, y_rows, sub)
-            return y.reshape(-1)[unpad].astype(dtype)
-
-        self._run_pallas = run
 
     def __call__(self, x, alpha: float = 1.0, beta: float = 0.0, y=None):
         m, n = self.shape
@@ -222,12 +108,7 @@ class Dist2DSpmvPlan:
             raise ValueError(f"x must have shape ({n},)")
         x_pad = jnp.zeros(self.n_pad, dtype=self.dtype).at[:n].set(x)
         x_pad = jax.device_put(x_pad, self._x_sharding)
-        if self.local_method == "pallas":
-            out = self._run_pallas(self._wr, self._ob, self._val, self._lcol,
-                                   x_pad)
-        else:
-            out = self._run(self._col, self._val, x_pad)
-        out = alpha * out
+        out = alpha * self._run(self._arrs, x_pad)
         if y is not None:
             out = out + beta * jnp.asarray(y, dtype=self.dtype)
         elif beta != 0.0:

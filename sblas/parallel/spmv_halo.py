@@ -3,25 +3,24 @@
 For banded/FEM matrices under a contiguous row partition, chip d's block
 touches columns only inside [r0_d - H_l, r1_d + H_r): everything it needs
 beyond its own x shard lives in the boundary strips of its two ring
-neighbors. The 1D all_gather plan moves ~n·4 bytes per chip per SpMV —
+neighbors. The 1D all_gather plan moves ~n·4 bytes per device per SpMV —
 that term is what kills weak scaling (BASELINE config #4/#5); the halo
-plan moves 2·H·4 bytes per chip (H = max one-sided halo over chips, for
-SPMD-uniform slab shapes), independent of the number of chips and of n
+plan moves 2·H·4 bytes per device (H = max one-sided halo over devices, for
+SPMD-uniform slab shapes), independent of the number of devices and of n
 for mesh-like matrices.
 
-Data flow per chip (shard_map body):
+Data flow per device (shard_map body):
 
-    left  = ppermute(my top H rows    -> right neighbor)   # ICI, ring
-    right = ppermute(my bottom H rows -> left  neighbor)   # ICI, ring
+    left  = ppermute(my top H rows    -> right neighbor)
+    right = ppermute(my bottom H rows -> left  neighbor)
     x_ext = concat(left, x_own, right)
-    y_own = local-spmv(block, x_ext)                        # on-chip
+    y_own = local-spmv(block, x_ext)
 
 Construction REFUSES (ValueError) when the required halo exceeds
 ``max_halo_frac`` of the shard size — scattered matrices should use the
-all_gather / PSEG / 2D plans instead; the caller decides.
+all_gather or 2D plans instead; the caller decides.
 
-Local compute: XLA ELL, or the w-SELL Pallas kernel over the extended
-chunk (same wsell_stack recipe as the other dist plans).
+Local compute: XLA ELL, or degree buckets on skewed rows (:mod:`.local`).
 """
 
 from __future__ import annotations
@@ -33,8 +32,8 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..formats import CSR, COO, INDEX_DTYPE, coo_to_csr
-from ..retile import to_ell
+from ..formats import CSR, COO, coo_to_csr
+from .local import apply_rows, stack_rows
 from .mesh import make_mesh, chips_axis
 
 
@@ -69,10 +68,10 @@ def _halo_partition(a: CSR, ndev: int, max_halo_frac: float):
         raise ValueError(
             f"halo {halo} exceeds {max_halo_frac:.0%} of the {chunk}-row "
             "shard — matrix is not band-local; use DistSpmvPlan "
-            "(all_gather), the PSEG path, or the 2D plan"
+            "(all_gather) or the 2D plan"
         )
     if halo > chunk:
-        raise ValueError("halo wider than a shard; fewer chips or "
+        raise ValueError("halo wider than a shard; fewer devices or "
                          "another plan")
     ext = chunk + 2 * halo
     blocks = []
@@ -88,12 +87,10 @@ def _halo_partition(a: CSR, ndev: int, max_halo_frac: float):
     return chunk, halo, blocks
 
 
-class HaloSpmvPlan:
-    """Row-partitioned SpMV with neighbor halo exchange (square A)."""
+class _HaloPlan:
+    """Shared set-up: even row split, halo width, stacked local blocks."""
 
-    def __init__(self, a: CSR, mesh: Mesh | None = None, *,
-                 local_method: str = "auto", max_halo_frac: float = 0.5,
-                 min_fill: float = 0.2, th: int = 1024):
+    def __init__(self, a: CSR, mesh: Mesh | None, max_halo_frac: float):
         m, n = a.shape
         if m != n:
             raise ValueError("halo plan needs a square matrix (x partition "
@@ -110,146 +107,55 @@ class HaloSpmvPlan:
         self.x_chunk = chunk
         self.n_pad = chunk * ndev
         self.halo = halo
-        ext = chunk + 2 * halo
-        self.ext = ext
-
-        sh = lambda spec: NamedSharding(self.mesh, spec)
-        self.local_method = None
-        if local_method in ("auto", "pallas"):
-            try:
-                from .wsell_stack import stack_wsell
-
-                st = stack_wsell(blocks, ext, self.dtype,
-                                 min_fill=min_fill, th=th)
-                self._stacked = st
-                self._val = jax.device_put(st.val, sh(P(chips_axis)))
-                self._lcol = jax.device_put(st.lcol, sh(P(chips_axis)))
-                self._wr = jax.device_put(st.wrow, sh(P(chips_axis)))
-                self._ob = jax.device_put(st.obase, sh(P(chips_axis)))
-                self.bytes_per_iter = st.bytes_per_iter * ndev
-                self.local_method = "pallas"
-            except ValueError:
-                if local_method == "pallas":
-                    raise
-        if self.local_method is None:
-            ells = [to_ell(b) for b in blocks]
-            width = max(max(e.width for e in ells), 1)
-            rows_pad = chunk
-            col = np.zeros((ndev, rows_pad, width), dtype=INDEX_DTYPE)
-            val = np.zeros((ndev, rows_pad, width), dtype=a.dtype)
-            for d, e in enumerate(ells):
-                col[d, : e.col.shape[0], : e.width] = e.col
-                val[d, : e.val.shape[0], : e.width] = e.val
-            self._col = jax.device_put(col, sh(P(chips_axis)))
-            self._val = jax.device_put(val, sh(P(chips_axis)))
-            self.bytes_per_iter = col.size * (a.data.itemsize + 4)
-            self.local_method = "ell"
-
-        # collective model: two H-slabs per chip per iteration
+        self.ext = chunk + 2 * halo
+        st = stack_rows(blocks, a.dtype, out_rows=chunk)
+        self.local_method = st.method
+        self.bytes_per_iter = st.bytes_per_iter
+        sh = NamedSharding(self.mesh, P(chips_axis))
+        self._arrs = (
+            tuple((jax.device_put(c, sh), jax.device_put(v, sh))
+                  for c, v in st.buckets),
+            None if st.perm is None else jax.device_put(st.perm, sh))
+        # collective model: two H-slabs per device per iteration
         self.collective_bytes_per_chip = 2 * halo * a.data.itemsize
-        self._x_sharding = sh(P(chips_axis))
-        self._build_fn()
 
-    def _build_fn(self):
-        ndev, halo, chunk, ext = self.ndev, self.halo, self.x_chunk, self.ext
+    def _build_run(self, x_spec):
+        ndev, halo, chunk = self.ndev, self.halo, self.x_chunk
         n = self.shape[0]
         fwd = [(i, (i + 1) % ndev) for i in range(ndev)]   # d -> d+1
         bwd = [(i, (i - 1) % ndev) for i in range(ndev)]   # d -> d-1
 
-        def exchange(x_own):
-            # x_own: (chunk,). Left halo = previous chip's bottom rows;
-            # right halo = next chip's top rows. The ring wraps, but wrap
-            # slabs are never read: halo columns past the matrix edge do
-            # not occur (halo derives from real column spans).
+        def body(arrs, x_own):
+            # x_own: (chunk,) or (chunk, k). Left halo = previous device's
+            # bottom rows; right halo = next device's top rows. The ring
+            # wraps, but wrap slabs are never read: halo columns past the
+            # matrix edge do not occur (halo derives from real column
+            # spans).
+            buckets, perm = arrs
             with jax.named_scope("collective"):
                 left = lax.ppermute(x_own[-halo:], chips_axis, fwd)
                 right = lax.ppermute(x_own[:halo], chips_axis, bwd)
-            return jnp.concatenate([left, x_own, right])
+            x_ext = jnp.concatenate([left, x_own, right])
+            with jax.named_scope("kernel"):
+                y = apply_rows(buckets, perm, x_ext, chunk)
+            return y[None]
 
-        if self.local_method == "pallas":
-            import jax.experimental.pallas as pl
-            from jax.experimental.pallas import tpu as pltpu
+        fn = shard_map(
+            body, mesh=self.mesh,
+            in_specs=(P(chips_axis), x_spec),
+            out_specs=P(chips_axis, *([None] * len(x_spec))),
+            check_vma=False,
+        )
 
-            from ..ops.kernels.spmv_pallas import _kernel
-            from ..retile_wsell import LANES
-            from ..utils.backend import on_cpu
+        @jax.jit
+        def run(arrs, x_pad):
+            y = fn(arrs, x_pad)                # (ndev, chunk[, k])
+            return y.reshape((-1,) + y.shape[2:])[:n]
 
-            st = self._stacked
-            xpad = st.x2d_rows * LANES - ext
-            grid_spec = pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=2,
-                grid=(st.num_tiles,),
-                in_specs=[
-                    pl.BlockSpec(memory_space=pltpu.VMEM),
-                    pl.BlockSpec((st.th, LANES), lambda t, wr, ob: (t, 0)),
-                    pl.BlockSpec((st.th, LANES), lambda t, wr, ob: (t, 0)),
-                ],
-                out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            )
-            call = pl.pallas_call(
-                _kernel(st.th, st.sub, st.nwin, st.wgroup),
-                grid_spec=grid_spec,
-                out_shape=jax.ShapeDtypeStruct((st.y_rows, st.sub),
-                                               jnp.float32),
-                interpret=on_cpu(),
-            )
-            y_rows, sub = st.y_rows, st.sub
+        return run
 
-            def body(wr, ob, val, lcol, x_shard):
-                x_ext = exchange(x_shard)
-                x2d = jnp.pad(x_ext.astype(jnp.float32),
-                              (0, xpad)).reshape(st.x2d_rows, LANES)
-                with jax.named_scope("kernel"):
-                    y = call(wr[0], ob[0], x2d, val[0], lcol[0])
-                return y.reshape(-1)[:chunk].astype(x_shard.dtype)[None]
-
-            fn = shard_map(
-                body, mesh=self.mesh,
-                in_specs=(P(chips_axis),) * 4 + (P(chips_axis),),
-                out_specs=P(chips_axis, None),
-                check_vma=False,
-            )
-
-            @jax.jit
-            def run(wr, ob, val, lcol, x_pad):
-                y = fn(wr, ob, val, lcol, x_pad)
-                return y.reshape(-1)[:n]
-
-            self._run_pallas = run
-        else:
-            def body(col, val, x_shard):
-                x_ext = exchange(x_shard)
-                with jax.named_scope("kernel"):
-                    y = jnp.sum(val[0] * x_ext[col[0]], axis=1)
-                return y[None]
-
-            fn = shard_map(
-                body, mesh=self.mesh,
-                in_specs=(P(chips_axis), P(chips_axis), P(chips_axis)),
-                out_specs=P(chips_axis, None),
-                check_vma=False,
-            )
-
-            @jax.jit
-            def run(col, val, x_pad):
-                y = fn(col, val, x_pad)
-                return y.reshape(-1)[:n]
-
-            self._run = run
-
-    def __call__(self, x, alpha: float = 1.0, beta: float = 0.0, y=None):
-        m, n = self.shape
-        x = jnp.asarray(x, dtype=self.dtype)
-        if x.shape != (n,):
-            raise ValueError(f"x must have shape ({n},)")
-        x_pad = jnp.zeros(self.n_pad, dtype=self.dtype).at[:n].set(x)
-        x_pad = jax.device_put(x_pad, self._x_sharding)
-        if self.local_method == "pallas":
-            out = self._run_pallas(self._wr, self._ob, self._val,
-                                   self._lcol, x_pad)
-        else:
-            out = self._run(self._col, self._val, x_pad)
-        out = alpha * out
+    def _apply(self, x, alpha, beta, y):
+        out = alpha * self._run(self._arrs, x)
         if y is not None:
             out = out + beta * jnp.asarray(y, dtype=self.dtype)
         elif beta != 0.0:
@@ -257,77 +163,41 @@ class HaloSpmvPlan:
         return out
 
 
+class HaloSpmvPlan(_HaloPlan):
+    """Row-partitioned SpMV with neighbor halo exchange (square A)."""
+
+    def __init__(self, a: CSR, mesh: Mesh | None = None, *,
+                 max_halo_frac: float = 0.5):
+        super().__init__(a, mesh, max_halo_frac)
+        self._x_sharding = NamedSharding(self.mesh, P(chips_axis))
+        self._run = self._build_run(P(chips_axis))
+
+    def __call__(self, x, alpha: float = 1.0, beta: float = 0.0, y=None):
+        m, n = self.shape
+        x = jnp.asarray(x, dtype=self.dtype)
+        if x.shape != (n,):
+            raise ValueError(f"x must have shape ({n},)")
+        x_pad = jnp.zeros(self.n_pad, dtype=self.dtype).at[:n].set(x)
+        return self._apply(jax.device_put(x_pad, self._x_sharding),
+                           alpha, beta, y)
+
+
 def halo_spmv(a: CSR, x, mesh: Mesh | None = None, **kw):
     """One-shot halo-exchange distributed SpMV."""
     return HaloSpmvPlan(a, mesh, **kw)(x)
 
 
-class HaloSpmmPlan:
+class HaloSpmmPlan(_HaloPlan):
     """Row-partitioned SpMM with neighbor halo exchange: the dense RHS X
-    is row-sharded like x, the exchange moves two (H, k) slabs per chip —
-    still independent of n and chip count, now amortized over k columns of
-    arithmetic. Local compute is the XLA ELL einsum (the w-SELL SpMM
-    kernel slots in via the same wsell_stack recipe when profiles ask)."""
+    is row-sharded like x, the exchange moves two (H, k) slabs per device —
+    still independent of n and device count, now amortized over k columns
+    of arithmetic."""
 
     def __init__(self, a: CSR, mesh: Mesh | None = None, *,
                  max_halo_frac: float = 0.5):
-        m, n = a.shape
-        if m != n:
-            raise ValueError("halo plan needs a square matrix")
-        self.mesh = mesh or make_mesh()
-        ndev = int(self.mesh.devices.size)
-        self.ndev = ndev
-        self.shape = a.shape
-        self.dtype = a.dtype
-        chunk, halo, blocks = _halo_partition(a, ndev, max_halo_frac)
-        self.x_chunk = chunk
-        self.n_pad = chunk * ndev
-        self.halo = halo
-
-        ells = [to_ell(b) for b in blocks]
-        width = max(max(e.width for e in ells), 1)
-        col = np.zeros((ndev, chunk, width), dtype=INDEX_DTYPE)
-        val = np.zeros((ndev, chunk, width), dtype=a.dtype)
-        for d, e in enumerate(ells):
-            col[d, : e.col.shape[0], : e.width] = e.col
-            val[d, : e.val.shape[0], : e.width] = e.val
-        sh = lambda spec: NamedSharding(self.mesh, spec)
-        self._col = jax.device_put(col, sh(P(chips_axis)))
-        self._val = jax.device_put(val, sh(P(chips_axis)))
-        self.bytes_per_iter = col.size * (a.data.itemsize + 4)
-        self.local_method = "ell"
-        self._x_sharding = sh(P(chips_axis, None))
-        self._build_fn()
-
-    def _build_fn(self):
-        ndev, halo = self.ndev, self.halo
-        n = self.shape[0]
-        fwd = [(i, (i + 1) % ndev) for i in range(ndev)]
-        bwd = [(i, (i - 1) % ndev) for i in range(ndev)]
-
-        def body(col, val, x_shard):
-            # x_shard: (chunk, k)
-            with jax.named_scope("collective"):
-                left = lax.ppermute(x_shard[-halo:], chips_axis, fwd)
-                right = lax.ppermute(x_shard[:halo], chips_axis, bwd)
-            x_ext = jnp.concatenate([left, x_shard, right])
-            with jax.named_scope("kernel"):
-                y = jnp.einsum("rw,rwk->rk", val[0], x_ext[col[0]])
-            return y[None]
-
-        fn = shard_map(
-            body, mesh=self.mesh,
-            in_specs=(P(chips_axis), P(chips_axis), P(chips_axis, None)),
-            out_specs=P(chips_axis, None, None),
-            check_vma=False,
-        )
-
-        @jax.jit
-        def run(col, val, x_pad):
-            y = fn(col, val, x_pad)  # (ndev, chunk, k)
-            return y.reshape(-1, y.shape[-1])[:n]
-
-        self._run = run
+        super().__init__(a, mesh, max_halo_frac)
+        self._x_sharding = NamedSharding(self.mesh, P(chips_axis, None))
+        self._run = self._build_run(P(chips_axis, None))
 
     def __call__(self, x, alpha: float = 1.0, beta: float = 0.0, y=None):
         m, n = self.shape
@@ -336,13 +206,8 @@ class HaloSpmmPlan:
             raise ValueError(f"X must have shape ({n}, k), got {x.shape}")
         x_pad = jnp.zeros((self.n_pad, x.shape[1]),
                           dtype=self.dtype).at[:n].set(x)
-        x_pad = jax.device_put(x_pad, self._x_sharding)
-        out = alpha * self._run(self._col, self._val, x_pad)
-        if y is not None:
-            out = out + beta * jnp.asarray(y, dtype=self.dtype)
-        elif beta != 0.0:
-            raise ValueError("beta != 0 requires y")
-        return out
+        return self._apply(jax.device_put(x_pad, self._x_sharding),
+                           alpha, beta, y)
 
 
 def halo_spmm(a: CSR, x, mesh: Mesh | None = None, **kw):

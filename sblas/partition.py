@@ -51,8 +51,8 @@ class NnzSplitPartition:
     rows span [first_row[d], last_row[d]] where boundary rows may be shared
     with neighbours. Each device computes partial sums for its row span; the
     merge plan is: y = sum over devices of scatter(partial, first_row[d]).
-    On TPU the merge is a psum of length-m partial vectors (or psum_scatter
-    when m is sharded) rather than P2P copies.
+    Here the merge is a psum of length-m partial vectors rather than P2P
+    copies.
     """
 
     ndev: int

@@ -1,22 +1,21 @@
 """Bandwidth-reducing reordering (reverse Cuthill–McKee).
 
-The w-SELL layout charges each row block one 2-panel (256-column) window
-per round, so fill — and therefore the achieved fraction of STREAM — is
-set by column locality (DESIGN.md "Layout"). FEM matrices from meshers
-usually arrive with good locality; matrices with scrambled numbering do
-not, and land on the slower PSEG/bucket paths. RCM restores locality for
+An SpMV gathers x[col] for every nonzero; rows whose columns sit close
+together read x from few cache lines, scattered columns read one line per
+nonzero. FEM matrices from meshers usually arrive with good locality;
+matrices with scrambled numbering do not. RCM restores locality for
 anything whose underlying graph is mesh-like.
 
 Usage:
 
     ap, perm = sblas.reorder.rcm(a)      # ap = P A P^T, symmetric perm
-    plan = SpmvPlan(ap, "pallas")
+    plan = SpmvPlan(ap)
     y = unpermute(plan(x[perm]), perm)   # or stay in permuted space
 
-``rcm_profile(a)`` reports the fill the w-SELL packer would get before
-and after, so callers can decide whether the two permutation applications
-per drop-in call are worth it (iterative solvers amortize them to zero by
-staying in permuted space, as examples/cg.py does with plans generally).
+``rcm_profile(a)`` reports the bandwidth and mean row span before and
+after, so callers can decide whether the two permutation applications per
+drop-in call are worth it (iterative solvers amortize them to zero by
+staying in permuted space).
 """
 
 from __future__ import annotations
@@ -54,16 +53,24 @@ def unpermute(y_perm, perm: np.ndarray):
     return out
 
 
-def rcm_profile(a: CSR, **pack_kw) -> dict:
-    """w-SELL fill before/after RCM (cheap slot-count probe, no packing)."""
-    from .retile_wsell import pick_sub, LANES
-    from .retile_wsell import _chunk_stats
-
-    def fill_of(mat):
-        sub = pick_sub(mat)
-        lps = LANES // sub
-        _, slots = _chunk_stats(mat, lps)
-        return mat.nnz / max(slots, 1)
+def rcm_profile(a: CSR) -> dict:
+    """Bandwidth (max |i - j|) and mean row span (max - min column per
+    row) before and after RCM."""
+    def stats(mat):
+        rows = mat.row_ids().astype(np.int64)
+        cols = mat.indices.astype(np.int64)
+        if not len(cols):
+            return 0, 0.0
+        m = mat.shape[0]
+        lo = np.full(m, np.iinfo(np.int64).max)
+        hi = np.full(m, -1)
+        np.minimum.at(lo, rows, cols)
+        np.maximum.at(hi, rows, cols)
+        live = hi >= 0
+        return (int(np.abs(rows - cols).max()),
+                float((hi[live] - lo[live]).mean()))
 
     ap, _ = rcm(a)
-    return {"fill_before": fill_of(a), "fill_after": fill_of(ap)}
+    (bw0, span0), (bw1, span1) = stats(a), stats(ap)
+    return {"bandwidth_before": bw0, "bandwidth_after": bw1,
+            "span_before": span0, "span_after": span1}

@@ -1,8 +1,8 @@
-"""Host-side retiling: CSR -> TPU-friendly device layouts (layer L1).
+"""Host-side retiling: CSR -> device layouts (layer L1).
 
 The reference keeps CSR on-device and maps CUDA warps to rows (SURVEY.md C5);
-on TPU the equivalent design decision is to re-lay the nnz stream out in HBM
-so the kernel streams dense (sublane, lane)-shaped tiles. Layouts here:
+here the nnz stream is re-laid out so one fused XLA gather-multiply-reduce
+covers a block of rows at a time. Layouts here:
 
 - ``EllPack``: classic ELLPACK, rows padded to the global max degree. Optimal
   for regular matrices (FEM suite); catastrophic for power-law tails.
@@ -10,8 +10,9 @@ so the kernel streams dense (sublane, lane)-shaped tiles. Layouts here:
   its own ELLPACK with a row permutation (a SELL-C-sigma variant with global
   sorting). Bounded padding (<2x) for any degree distribution.
 
-Both are consumed by the XLA gather path and the Pallas kernels. All padding
-uses column 0 with value 0 so no masking is needed in inner loops.
+Both are consumed by the XLA gather routes, single-device and distributed.
+All padding uses column 0 with value 0 so no masking is needed in inner
+loops.
 """
 
 from __future__ import annotations
@@ -88,7 +89,7 @@ def to_bucket_ell(
     """Bucket rows by ceil-power-of-two degree. Rows with degree above
     ``max_width`` (default: no cap) are split into multiple slots of width
     ``max_width`` whose partial results sum into the same output row — the
-    TPU analogue of the reference's nnz-split of heavy rows (SURVEY.md C4).
+    analogue of the reference's nnz-split of heavy rows (SURVEY.md C4).
     Splitting is handled by the caller via ``perm`` collisions being invalid;
     here heavy rows simply get the largest bucket unless capped."""
     m, n = a.shape

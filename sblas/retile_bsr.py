@@ -1,16 +1,15 @@
 """Dense-block BSR retiling: sparse matrix as a list of dense (R x 128)
 blocks (SURVEY.md C5/C6 "padded-segment" alternative).
 
-TPU rationale: the MXU consumes dense (128,128) tiles natively, and XLA's
-row-gather of contiguous (128, k) X panels is efficient — so for matrices
-whose nonzeros cluster into panels (FEM suite), storing touched panels
-*dense* removes the irregular gather entirely:
+For matrices whose nonzeros cluster into panels (FEM suite), storing the
+touched panels *dense* turns the irregular per-nonzero gather into a
+gather of contiguous (128, k) X panels and a batched dense contraction:
 
     Y = segment_sum_over_block_rows( A_blocks @ X[block_col] )
 
 Traffic is block_bytes = dense panels; worthwhile when block density (nnz /
 touched-panel area) is above ~15-25%. The planner reports density so callers
-can fall back to ELL/w-SELL for scattered matrices.
+can fall back to ELL for scattered matrices.
 """
 
 from __future__ import annotations
@@ -60,31 +59,8 @@ def bsr_stats(a: CSR, *, br: int = 128, bc: int = 128) -> dict:
             "bytes": area * a.data.itemsize}
 
 
-def pack_bsr(a: CSR, *, br: int = 128, bc: int = 128,
-             cache: bool = True) -> BsrBlocks:
-    """Dense-block pack. Large packings persist via plan_cache (mmap .npy):
-    fem-band-1M's 12 GiB block plan costs ~750 s to build host-side and is
-    shared by every k (the k-aware dense routing makes it the large-FEM
-    SpMM default — e30)."""
-    from . import plan_cache
-
-    m, n = a.shape
-    if (cache and plan_cache.cache_enabled()
-            and a.nnz >= 8 * plan_cache.MIN_CACHE_NNZ):
-        params = {"br": br, "bc": bc, "v": 1}
-
-        def build():
-            b = _pack_bsr_impl(a, br=br, bc=bc)
-            return {"blocks": b.blocks, "brow": b.brow, "bcol": b.bcol,
-                    "meta": np.array([b.m, b.n, b.nnz, b.nblocks,
-                                      b.num_brows, b.num_bcols],
-                                     dtype=np.int64)}
-
-        d = plan_cache.cached_arrays(a, "bsr", params, build)
-        mt = d["meta"]
-        return BsrBlocks(int(mt[0]), int(mt[1]), int(mt[2]), br, bc,
-                         int(mt[3]), d["blocks"], d["brow"], d["bcol"],
-                         int(mt[4]), int(mt[5]))
+def pack_bsr(a: CSR, *, br: int = 128, bc: int = 128) -> BsrBlocks:
+    """Dense-block pack: one dense (br, bc) block per touched block of A."""
     return _pack_bsr_impl(a, br=br, bc=bc)
 
 

@@ -5,10 +5,9 @@ dependency level (Naumov-style level sets), then packed into fixed-size tiles
 that never mix levels, so the device solve is a serial scan over tiles with
 all dependencies pointing at strictly earlier tiles.
 
-The reference's sync-free variant (C9: per-row spin-wait on atomics) has no
-TPU analogue — there is no fine-grained inter-core sync — so the level-set
-schedule plus tile batching is the entire strategy (deliberate divergence,
-documented in SURVEY.md C9).
+The reference's sync-free variant (C9: per-row spin-wait on atomics) is not
+built; the level-set schedule plus tile batching is the strategy, walked by
+an XLA loop or by one kernel launch on a GPU (SURVEY.md C9, ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -73,100 +73,3 @@ def test_emulate_stats():
 def test_load_unknown():
     with pytest.raises(FileNotFoundError):
         datasets.load("no-such-matrix")
-
-
-def test_plan_cache_roundtrip(tmp_path):
-    from sblas.plan_cache import cached_arrays, matrix_digest
-
-    a = datasets.random_csr(50, 50, 5, seed=40)
-    calls = []
-
-    def build():
-        calls.append(1)
-        return {"x": np.arange(5), "y": np.ones((2, 3))}
-
-    r1 = cached_arrays(a, "test", {"p": 1}, build, cache_dir=str(tmp_path))
-    r2 = cached_arrays(a, "test", {"p": 1}, build, cache_dir=str(tmp_path))
-    assert len(calls) == 1
-    np.testing.assert_array_equal(r1["x"], r2["x"])
-    # different params -> rebuild
-    cached_arrays(a, "test", {"p": 2}, build, cache_dir=str(tmp_path))
-    assert len(calls) == 2
-    # different matrix -> different digest
-    b = datasets.random_csr(50, 50, 5, seed=41)
-    assert matrix_digest(a) != matrix_digest(b)
-
-
-def test_pack_wsell_uses_plan_cache(tmp_path, monkeypatch):
-    # second pack of a big-enough matrix must come from the persistent cache
-    # (VERDICT r1 item 8): same arrays, one .npz on disk, no repack call
-    import sblas.plan_cache as pc
-    from sblas.retile_wsell import pack_wsell
-    from sblas import retile_wsell
-
-    monkeypatch.setattr(pc, "MIN_CACHE_NNZ", 1)
-    monkeypatch.setattr(pc, "_DEFAULT_DIR", str(tmp_path))
-    a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
-    w1 = pack_wsell(a)
-    assert len(list(tmp_path.glob("wsell-*/MANIFEST.json"))) == 1
-    calls = []
-    orig = retile_wsell._pack_wsell_impl
-    monkeypatch.setattr(retile_wsell, "_pack_wsell_impl",
-                        lambda *a_, **k: calls.append(1) or orig(*a_, **k))
-    w2 = pack_wsell(a)
-    assert not calls, "second pack must hit the cache, not repack"
-    np.testing.assert_array_equal(w1.val, w2.val)
-    np.testing.assert_array_equal(w1.lcol, w2.lcol)
-    assert (w1.num_tiles, w1.sub, w1.y_rows) == (w2.num_tiles, w2.sub, w2.y_rows)
-
-
-def test_trsv_layout_uses_plan_cache(tmp_path, monkeypatch):
-    import sblas.plan_cache as pc
-    from sblas.ops.kernels.sptrsv_pallas import build_layout
-
-    monkeypatch.setattr(pc, "MIN_CACHE_NNZ", 1)
-    monkeypatch.setattr(pc, "_DEFAULT_DIR", str(tmp_path))
-    l = datasets.lower_triangular(300, 5, seed=3, dtype=np.float32)
-    l1 = build_layout(l)
-    assert len(list(tmp_path.glob("trsv-*/MANIFEST.json"))) == 1
-    l2 = build_layout(l)
-    np.testing.assert_array_equal(l1.val, l2.val)
-    np.testing.assert_array_equal(l1.slot_of_row, l2.slot_of_row)
-    assert l1.nlevels == l2.nlevels
-
-
-def test_cached_matrix_roundtrip(tmp_path):
-    # generated-matrix persistence (VERDICT r2 item 3): second build() must
-    # not run; loaded matrix carries a key that makes matrix_digest free
-    from sblas.plan_cache import cached_matrix, matrix_digest
-
-    calls = []
-
-    def build():
-        calls.append(1)
-        return datasets.random_csr(200, 200, 7, seed=5)
-
-    a1 = cached_matrix("t-k1", build, cache_dir=str(tmp_path))
-    a2 = cached_matrix("t-k1", build, cache_dir=str(tmp_path))
-    assert len(calls) == 1
-    np.testing.assert_array_equal(a1.indptr, a2.indptr)
-    np.testing.assert_array_equal(a1.indices, a2.indices)
-    np.testing.assert_array_equal(a1.data, a2.data)
-    assert a1.shape == a2.shape
-    # digest comes from the key (identical, and differs across keys)
-    assert matrix_digest(a1) == matrix_digest(a2)
-    b = cached_matrix("t-k2", build, cache_dir=str(tmp_path))
-    assert matrix_digest(b) != matrix_digest(a1)
-
-
-def test_fingerprint_digest_large(monkeypatch):
-    # past FULL_DIGEST_NNZ the digest samples instead of hashing all bytes,
-    # but still separates different matrices
-    import sblas.plan_cache as pc
-
-    monkeypatch.setattr(pc, "FULL_DIGEST_NNZ", 1000)
-    a = datasets.random_csr(500, 500, 10, seed=1)
-    b = datasets.random_csr(500, 500, 10, seed=2)
-    da, db = pc.matrix_digest(a), pc.matrix_digest(b)
-    assert da.startswith("f") and db.startswith("f") and da != db
-    assert pc.matrix_digest(a) == da  # deterministic

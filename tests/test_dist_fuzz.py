@@ -76,8 +76,7 @@ def test_dist_2d_fuzz(seed, mesh8):
               rng.standard_normal(nnz).astype(np.float32))
     a = coo_to_csr(coo).astype(np.float32)
     x = rng.standard_normal(n).astype(np.float32)
-    y = np.asarray(Dist2DSpmvPlan(a, make_mesh2d(*grid),
-                                  local_method="ell")(x))
+    y = np.asarray(Dist2DSpmvPlan(a, make_mesh2d(*grid))(x))
     assert rel_err(y, spmv_golden(a, x)) < 1e-4, (m, n, nnz, grid)
 
 

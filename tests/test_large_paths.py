@@ -1,195 +1,113 @@
-"""Large-matrix single-chip paths (VERDICT r1 item 4; SURVEY.md §7 hard
-parts 1 & 4): blocked-y w-SELL (m beyond the VMEM y budget) and PSEG
-heavy-row splitting (Zipf mega-rows). Tests shrink the thresholds so the
-big-matrix machinery runs at interpret-mode-friendly sizes.
+"""Large-matrix paths at small sizes (SURVEY.md §7 hard parts 1 & 4):
+heavy rows split across bucket slots, SpMM gathers chunked over row
+blocks, and triangular solves whose level count equals their row count.
+Thresholds are shrunk so the machinery runs on CPU-friendly shapes.
 """
 
-import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from sblas import datasets
-from sblas.golden import spmv_golden, rel_err
-from sblas.retile_wsell import pack_wsell, wsell_to_dense
+from sblas.formats import COO, coo_to_csr, tril
+from sblas.golden import rel_err, spmm_golden, spmv_golden, sptrsv_golden
+from sblas.ops.spmm import SpmmPlan
+from sblas.ops.spmv import SpmvPlan
 
 
-def _dense_of(a):
-    d = np.zeros(a.shape, np.float64)
-    d[a.row_ids(), a.indices] = a.data
-    return d
+def _rows_of_degree(degs, n=4096, seed=0):
+    """A matrix whose row i has exactly degs[i] distinct columns."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(len(degs)), degs)
+    cols = np.concatenate([rng.choice(n, d, replace=False) for d in degs])
+    vals = rng.standard_normal(len(rows)).astype(np.float32)
+    return coo_to_csr(COO((len(degs), n), rows, cols, vals))
 
 
-@pytest.mark.parametrize("m,deg,bw", [(3000, 6, 300), (2050, 3, None),
-                                      (1500, 10, 150)])
-def test_blocked_pack_reconstructs(m, deg, bw):
-    a = datasets.random_csr(m, m, deg, bandwidth=bw, seed=1,
-                            dtype=np.float32)
-    w = pack_wsell(a, yblocks=4, cache=False)
-    assert w.num_yblks > 1
-    assert w.tile_yblk is not None and len(w.tile_yblk) == w.num_tiles
-    # every tile's rounds stay in one y block; obase is block-local
-    assert int(w.round_obase.max()) < w.yb_rows // 8
-    np.testing.assert_allclose(wsell_to_dense(w), _dense_of(a))
+@pytest.mark.parametrize("max_width", [64, 128])
+def test_heavy_rows_split_at_width_boundary(max_width):
+    """Rows of max_width - 1, max_width, max_width + 1 and 3 * max_width
+    entries split into the right number of slots and sum back exactly."""
+    from sblas.retile import to_bucket_ell
 
-
-def test_blocked_pack_empty_yblock_zeroes():
-    # rows [1024, 2048) empty -> middle y blocks have no rounds but still
-    # get a zeroing tile
-    a = datasets.random_csr(3072, 3072, 5, bandwidth=200, seed=3,
-                            dtype=np.float32)
-    s = a.to_scipy().tolil()
-    s[1024:2048, :] = 0
-    from sblas.formats import CSR
-
-    a2 = CSR.from_scipy(s.tocsr())
-    w = pack_wsell(a2, yblocks=2, cache=False)
-    np.testing.assert_allclose(wsell_to_dense(w), _dense_of(a2))
-
-
-def test_blocked_kernel_interpret(monkeypatch):
-    import sblas.ops.kernels.spmv_pallas as sp
-
-    monkeypatch.setattr(sp, "_VMEM_Y_LIMIT", 1)   # force blocked mode
-    monkeypatch.setattr(sp, "_YBLOCKS", 4)
-    rng = np.random.default_rng(0)
-    for m, deg, bw, seed in ((3000, 6, 300, 2), (2050, 3, None, 3)):
-        a = datasets.random_csr(m, m, deg, bandwidth=bw, seed=seed,
-                                dtype=np.float32)
-        p = sp.PallasSpmv(a, min_fill=0.0)
-        assert p.blocked and p.layout.num_yblks > 1
-        x = rng.standard_normal(m).astype(np.float32)
-        y = np.asarray(jax.jit(p.apply_pure)(p.device_arrays(),
-                                             jax.numpy.asarray(x)))
-        assert rel_err(y, spmv_golden(a, x)) < 1e-5
-
-
-def test_unblocked_unchanged_below_limit():
-    import sblas.ops.kernels.spmv_pallas as sp
-
-    a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
-    p = sp.PallasSpmv(a, min_fill=0.0)
-    assert not p.blocked and p.layout.tile_yblk is None
-
-
-def test_split_heavy_rows_algebra():
-    from sblas.ops.kernels.spmv_pseg import split_heavy_rows
-
-    a = datasets.powerlaw_graph(2000, avg_deg=30, seed=5, dtype=np.float32)
-    ap, vown = split_heavy_rows(a, cap=64)
-    assert vown is not None and ap.shape[0] == 2000 + len(vown)
-    assert int(np.diff(ap.indptr).max()) <= 64
-    # summing sub-rows back reproduces the matrix
-    d = _dense_of(ap)
-    merged = d[:2000]
-    np.add.at(merged, vown, d[2000:])
-    np.testing.assert_allclose(merged, _dense_of(a))
-    # light matrix: no split
-    b = datasets.random_csr(500, 500, 4, seed=6, dtype=np.float32)
-    b2, vown2 = split_heavy_rows(b, cap=64)
-    assert vown2 is None and b2 is b
-
-
-def test_pseg_executor_with_split(monkeypatch):
-    import sblas.ops.kernels.spmv_pseg as psg
-
-    orig = psg.split_heavy_rows
-    monkeypatch.setattr(psg, "split_heavy_rows",
-                        lambda ap, cap=64: orig(ap, cap))
-    a = datasets.powerlaw_graph(4000, avg_deg=40, seed=3, dtype=np.float32)
-    p = psg.PallasSpmvScattered(a, min_fill=0.0)
-    assert p.n_virtual > 0
-    x = np.random.default_rng(1).standard_normal(4000).astype(np.float32)
-    y = np.asarray(jax.jit(p.apply_pure)(p.device_arrays(),
-                                         jax.numpy.asarray(x)))
+    degs = [max_width - 1, max_width, max_width + 1, 3 * max_width, 5, 0]
+    a = _rows_of_degree(degs)
+    be = to_bucket_ell(a, max_width=max_width)
+    slots = np.bincount(be.perm[be.perm < len(degs)], minlength=len(degs))
+    np.testing.assert_array_equal(slots, [1, 1, 2, 3, 1, 1])
+    x = np.random.default_rng(1).standard_normal(a.shape[1]).astype(
+        np.float32)
+    y = np.asarray(SpmvPlan(a, "bucket", max_width=max_width)(x))
     assert rel_err(y, spmv_golden(a, x)) < 1e-5
 
 
-def test_hybrid_pack_refuses_shattered_tail():
-    # a shattered tail once projected a 241 GiB schedule allocation
-    # (powerlaw-1M pre-split); the packer must raise ValueError BEFORE
-    # allocating once the projection crosses its budget
-    from sblas import native
-    import sblas.retile_pseg as rp
-
-    if native._build_and_load() is None:
-        pytest.skip("native builder unavailable")
-    import scipy.sparse as sp
-    from sblas.formats import CSR
-
-    n = 1 << 15
-    # one mega-row whose tail entries all share (lane, sublane-slot):
-    # every column at the same offset mod (TAIL_WIN*128)
-    cols = np.arange(rp.HUB_PANELS * 128 + 7,
-                     n, rp.TAIL_WIN * 128).astype(np.int64)
-    a = sp.coo_matrix((np.ones(len(cols), np.float32),
-                       (np.zeros(len(cols), np.int64), cols)),
-                      shape=(1024, n)).tocsr()
-    csr = CSR.from_scipy(a)
-    try:
-        w = rp.pack_pseg_hybrid(csr, cache=False)
-        # small case: the guard may legitimately not trip — but the
-        # schedule must stay sane, not one round per entry times 1024
-        if w is not None:
-            assert w.val.nbytes < 1 << 26
-    except ValueError as e:
-        assert "shattered" in str(e)
+@pytest.mark.parametrize("k", [3, 32])
+@pytest.mark.parametrize("method", ["ell", "bucket"])
+def test_spmm_row_chunks_match_one_chunk(method, k):
+    """A gather budget of 1 MiB forces many lax.map row blocks; the result
+    equals the single-block contraction."""
+    a = datasets.random_csr(3000, 3000, 20, skew=1.0, bandwidth=300,
+                            seed=4, dtype=np.float32)
+    x = np.random.default_rng(k).standard_normal((3000, k)).astype(
+        np.float32)
+    small = SpmmPlan(a, method, intermediate_mb=1)
+    whole = SpmmPlan(a, method, intermediate_mb=1 << 12)
+    widths = ([small._width] if method == "ell"
+              else list(small._bucket_widths))
+    assert min(small._blk(w, k, 4, 3000) for w in widths) < 3000
+    np.testing.assert_allclose(np.asarray(small(x)), np.asarray(whole(x)),
+                               rtol=1e-5, atol=1e-5)
+    assert rel_err(np.asarray(small(x)), spmm_golden(a, x)) < 2e-5
 
 
-def test_streamed_xt_spmm(monkeypatch):
-    import sblas.ops.kernels.spmm_bsr_pallas as sb
-    from sblas.golden import spmm_golden
-
-    a = datasets.emulate("cant", scale=0.1, dtype=np.float32)
-    monkeypatch.setattr(sb, "_VMEM_T_LIMIT", 150 * 1024)
-    p = sb.PallasSpmmBsrT(a, k_hint=8)
-    assert p._slice_pcols > 0 and p.R >= 1
-    x = np.random.default_rng(3).standard_normal(
-        (a.shape[1], 8)).astype(np.float32)
-    y = np.asarray(jax.jit(p.apply_pure)(p.device_arrays(),
-                                         jax.numpy.asarray(x)))
-    assert rel_err(y, spmm_golden(a, x)) < 2e-5
-    # matches the resident-mode result bit-for-bit-ish
-    monkeypatch.setattr(sb, "_VMEM_T_LIMIT", int(14.5 * (1 << 20)))
-    p0 = sb.PallasSpmmBsrT(a, k_hint=8)
-    assert p0._slice_pcols == 0
-    y0 = np.asarray(jax.jit(p0.apply_pure)(p0.device_arrays(),
-                                           jax.numpy.asarray(x)))
-    np.testing.assert_allclose(y, y0, rtol=1e-5)
+def test_spmm_blk_divides_rows():
+    plan = SpmmPlan(datasets.random_csr(64, 64, 4, seed=0), "ell",
+                    intermediate_mb=1)
+    for mp in (8, 64, 1000, 4096, 4104):
+        for width, k in ((8, 1), (200, 32), (2048, 8)):
+            blk = plan._blk(width, k, 4, mp)
+            assert blk % 8 == 0 and mp % blk == 0 and blk <= mp
 
 
-def test_wsell_shatter_guard():
-    from sblas.retile_wsell import check_shattered
+@pytest.mark.parametrize("method", ["tiles"])
+def test_sptrsv_fully_serial_chain(method):
+    """A bidiagonal chain: one row per level, every tile a trip."""
+    from sblas.ops.sptrsv import SptrsvPlan
 
-    with pytest.raises(ValueError, match="shattered"):
-        check_shattered(1 << 22, 1000)          # huge and nearly empty
-    check_shattered(1 << 22, 1 << 31)           # huge but well-filled: ok
-    check_shattered(100, 5)                     # tiny: ok regardless
+    l = tril(datasets.banded(700, 1, seed=5, dtype=np.float64))
+    plan = SptrsvPlan(l, method=method)
+    assert plan.nlevels == 700
+    b = np.random.default_rng(6).standard_normal(700)
+    assert rel_err(np.asarray(plan(b)), sptrsv_golden(l, b)) < 1e-10
 
 
-def test_pseg_two_pass_counts():
-    # the native two-pass pack must produce identical rounds to before and
-    # exact-size allocations (no nnz-worst-case arrays)
-    from sblas import native
+def test_kernel_rows_wider_than_chunk():
+    """Rows several chunks wide (dense separator rows): the kernel's chunk
+    loop stops at each tile's own longest row and still sums every one."""
+    from sblas.ops.kernels import sptrsv_triton
+    from sblas.sptrsv_schedule import build_level_schedule
 
-    if native._build_and_load() is None:
-        pytest.skip("native builder unavailable")
-    a = datasets.powerlaw_graph(5000, avg_deg=20, seed=9, dtype=np.float32)
-    import sblas.ops.kernels.spmv_pseg as psg
-
-    ap, _, _ = psg.hub_relabel(a)
-    rows = ap.row_ids().astype(np.int64)
-    cols = ap.indices.astype(np.int64)
-    blk = rows // 1024
-    r_in = rows % 1024
-    tl = r_in % 128
-    ts = r_in // 128
-    pan = cols // 128
-    order = np.lexsort((pan, tl, blk))
-    packed = native.pack_pseg_rounds(
-        blk[order], tl[order], ts[order], pan[order], cols[order],
-        ap.data.astype(np.float32)[order], 1)
-    R, val, lcol, tsb, wrow, oblk, sidx = packed
-    assert R > 0 and val.shape == (R * 8, 128)
-    assert len(sidx) == 0
-    # every nnz appears exactly once
-    assert np.count_nonzero(val) == np.count_nonzero(ap.data)
+    n = 600
+    rng = np.random.default_rng(7)
+    rows, cols = [], []
+    for i in range(1, n):
+        d = 300 if i % 97 == 0 else 3       # a few very wide rows
+        c = rng.choice(i, min(d, i), replace=False)
+        rows.append(np.full(len(c), i))
+        cols.append(c)
+    rows = np.concatenate(rows + [np.arange(n)])
+    cols = np.concatenate(cols + [np.arange(n)])
+    vals = np.concatenate([rng.standard_normal(len(rows) - n) * 0.01,
+                           np.full(n, 2.0)])
+    l = coo_to_csr(COO((n, n), rows, cols, vals))
+    sched = build_level_schedule(l)
+    wb = 16
+    arrs = {k: jnp.asarray(v)
+            for k, v in sptrsv_triton.kernel_arrays(sched, wb).items()}
+    assert int(np.asarray(arrs["nch"]).max()) > 10
+    b = rng.standard_normal(n)
+    x = sptrsv_triton.solve(arrs, jnp.asarray(b), n=n,
+                            tile_rows=sched.tile_rows,
+                            num_tiles=sched.num_tiles, wb=wb,
+                            interpret=True)
+    assert rel_err(np.asarray(x), sptrsv_golden(l, b)) < 1e-10

@@ -93,38 +93,35 @@ def test_ring_matches_allgather(mesh8):
 
 
 @pytest.mark.parametrize("strategy", ["nnz_balanced", "nnz_split"])
-def test_dist_spmv_pallas_body(mesh8, strategy):
-    # The shard_map body must be able to run the single-chip Pallas w-SELL
-    # kernel per chip (interpret mode here); th=128 keeps the unroll small.
-    a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
-    x = np.random.default_rng(30).standard_normal(a.shape[1]).astype(np.float32)
-    p = DistSpmvPlan(a, mesh8, strategy=strategy, local_method="pallas",
-                     min_fill=0.05, th=128)
-    assert p.local_method == "pallas"
+def test_dist_spmv_bucket_body(mesh8, strategy):
+    # power-law rows: every device runs degree buckets with a scatter-add
+    # merge of its slots (plus a psum under nnz_split)
+    g = datasets.emulate("uk-2002", scale=0.005, dtype=np.float32)
+    x = np.random.default_rng(30).standard_normal(g.shape[1]).astype(np.float32)
+    p = DistSpmvPlan(g, mesh8, strategy=strategy)
+    assert p.local_method == "bucket"
     y = np.asarray(p(x))
-    assert rel_err(y, spmv_golden(a, x)) < 1e-5
+    assert rel_err(y, spmv_golden(g, x)) < 1e-5
 
 
-def test_dist_spmm_pallas_body(mesh8):
+def test_dist_spmm_bucket_body(mesh8):
     from sblas.parallel.spmm_dist import DistSpmmPlan
 
-    a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
-    x = np.random.default_rng(31).standard_normal((a.shape[1], 8)).astype(np.float32)
-    p = DistSpmmPlan(a, mesh8, local_method="pallas", min_fill=0.05, th=128)
-    assert p.local_method == "pallas"
+    g = datasets.emulate("uk-2002", scale=0.004, dtype=np.float32)
+    x = np.random.default_rng(31).standard_normal((g.shape[1], 8)).astype(np.float32)
+    p = DistSpmmPlan(g, mesh8)
+    assert p.local_method == "bucket"
     y = np.asarray(p(x))
-    assert rel_err(y, spmm_golden(a, x)) < 1e-5
+    assert rel_err(y, spmm_golden(g, x)) < 1e-5
 
 
-def test_dist_spmm_bsrt_body(mesh8):
-    # Auto must pick the transposed dense-block BSR local body (the
-    # single-chip DMA-roofline SpMM kernel, round 4) for panel-clustered
-    # f32 matrices, for any k (padded to a multiple of 8 in-kernel).
+def test_dist_spmm_ell_body_any_k(mesh8):
+    # regular FEM rows: one ELL slab per device serves any k
     from sblas.parallel.spmm_dist import DistSpmmPlan
 
     a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
     p = DistSpmmPlan(a, mesh8)
-    assert p.local_method == "bsr_t"
+    assert p.local_method == "ell"
     for k in (8, 5):
         x = np.random.default_rng(40 + k).standard_normal(
             (a.shape[1], k)).astype(np.float32)
@@ -141,7 +138,7 @@ def test_dist_auto_falls_back_on_f64(mesh8):
 def test_dist_sptrsv_batching_reduces_collectives(mesh8):
     # Level batching must fuse chains into few exchanges and the shrunk
     # all_gather must move far fewer bytes than one length-n psum per level
-    # (SURVEY.md hard-part 5; VERDICT r1 item 7).
+    # (SURVEY.md hard-part 4).
     a = datasets.spd_diag_dominant(200, 5, bandwidth=12, seed=4,
                                    dtype=np.float64)
     l = datasets.cholesky_factor(a, dtype=np.float64)
@@ -164,54 +161,48 @@ def test_dist_sptrsv_upper(mesh8):
     assert rel_err(x, sptrsv_golden(u, b, lower=False)) < 1e-10
 
 
-def test_dist_spmv_pseg_body(mesh8):
-    # scattered/power-law dist path: hub-relabeled PSEG kernel per chip
-    g = datasets.emulate("uk-2002", scale=0.005, dtype=np.float32)
-    x = np.random.default_rng(60).standard_normal(g.shape[1]).astype(np.float32)
-    p = DistSpmvPlan(g, mesh8, local_method="pseg", min_fill=0.1)
-    y = np.asarray(p(x))
-    assert rel_err(y, spmv_golden(g, x)) < 1e-5
-    # auto must chain w-SELL -> PSEG on power-law shards
-    assert DistSpmvPlan(g, mesh8).local_method == "pseg"
+def _heavy_rows_matrix(m=6000, heavy=6000, seed=60):
+    """Regular rows plus two rows longer than the bucket width cap (2048),
+    which split across several slots of one device."""
+    from sblas.formats import COO, coo_to_csr
+
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([np.repeat(np.arange(m), 6),
+                           np.full(heavy, 7), np.full(heavy, m - 3)])
+    cols = rng.integers(0, m, len(rows))
+    return coo_to_csr(COO((m, m), rows, cols, rng.standard_normal(
+        len(rows)).astype(np.float32))).astype(np.float32)
 
 
-def test_dist_spmm_pseg_body(mesh8):
+@pytest.mark.parametrize("strategy", ["nnz_balanced", "nnz_split"])
+def test_dist_spmv_heavy_rows(mesh8, strategy):
+    a = _heavy_rows_matrix()
+    assert a.row_lengths.max() > 2048
+    x = np.random.default_rng(61).standard_normal(a.shape[1]).astype(np.float32)
+    p = DistSpmvPlan(a, mesh8, strategy=strategy)
+    assert p.local_method == "bucket"
+    assert rel_err(np.asarray(p(x)), spmv_golden(a, x)) < 1e-5
+
+
+def test_dist_spmm_heavy_rows(mesh8):
     from sblas.parallel.spmm_dist import DistSpmmPlan
 
-    g = datasets.emulate("uk-2002", scale=0.004, dtype=np.float32)
-    p = DistSpmmPlan(g, mesh8, local_method="pseg", min_fill=0.1)
-    x = np.random.default_rng(70).standard_normal((g.shape[1], 8)).astype(np.float32)
-    y = np.asarray(p(x))
-    assert rel_err(y, spmm_golden(g, x)) < 1e-5
-    assert DistSpmmPlan(g, mesh8).local_method == "pseg"
-
-
-def test_dist_spmv_pseg_nnz_split(mesh8):
-    # PSEG local body under the nnz_split strategy (VERDICT r1 item 6):
-    # global row/col permutation, equal-nnz global-shape shards, psum merge.
-    g = datasets.emulate("uk-2002", scale=0.005, dtype=np.float32)
-    x = np.random.default_rng(61).standard_normal(g.shape[1]).astype(np.float32)
-    p = DistSpmvPlan(g, mesh8, strategy="nnz_split", local_method="pseg",
-                     min_fill=0.05)
-    assert p.local_method == "pseg"
-    y = np.asarray(p(x))
-    assert rel_err(y, spmv_golden(g, x)) < 1e-5
+    a = _heavy_rows_matrix()
+    x = np.random.default_rng(70).standard_normal((a.shape[1], 8)).astype(np.float32)
+    y = np.asarray(DistSpmmPlan(a, mesh8, strategy="nnz_split")(x))
+    assert rel_err(y, spmm_golden(a, x)) < 1e-5
 
 
 @pytest.mark.parametrize("local_method,matrix", [
-    ("bsr_t", "cant"), ("pallas", "cant"), ("pseg", "uk-2002"),
-    ("ell", "cant"),
+    ("ell", "cant"), ("bucket", "uk-2002"),
 ])
 def test_dist_spmm_nnz_split(mesh8, local_method, matrix):
-    # nnz_split for DistSpmmPlan across every local body (VERDICT r1 item 6)
+    # nnz_split for DistSpmmPlan under each local body the matrix selects
     from sblas.parallel.spmm_dist import DistSpmmPlan
 
     a = datasets.emulate(matrix, scale=0.05 if matrix == "cant" else 0.004,
                          dtype=np.float32)
-    kw = dict(min_fill=0.05, th=128) if local_method == "pallas" else \
-        dict(min_fill=0.05)
-    p = DistSpmmPlan(a, mesh8, strategy="nnz_split",
-                     local_method=local_method, **kw)
+    p = DistSpmmPlan(a, mesh8, strategy="nnz_split")
     assert p.local_method == local_method
     for k in (8, 3):
         x = np.random.default_rng(80 + k).standard_normal(
@@ -245,19 +236,20 @@ def test_dist_sptrsm(mesh8):
     np.testing.assert_allclose(x[:, 0], x0, rtol=1e-5, atol=1e-6)
 
 
-def test_bench_dist_spmv_pseg_local(mesh8):
-    """Regression (r2 review): bench_dist_spmv crashed with AttributeError
-    when the plan auto-selected the pseg local method."""
+def test_bench_dist_spmv_bucket_local(mesh8):
+    """bench_dist_spmv on a plan whose local body is degree buckets."""
     from sblas.bench_lib import bench_dist_spmv
 
     g = datasets.emulate("uk-2002", scale=0.005, dtype=np.float32)
     rec = bench_dist_spmv(g, mesh8, iters=2)
-    assert rec.extra["local_method"] == "pseg"
+    assert rec.extra["local_method"] == "bucket"
     assert rec.extra["rel_err"] < 1e-4
+    assert rec.as_dict()["device"]["platform"] == "cpu"
 
 
-def test_dist_pseg_trailing_empty_rows(mesh8):
-    """Regression: per-shard PSEG y regions must cover every shard row."""
+def test_dist_trailing_empty_rows(mesh8):
+    """Regression: per-shard outputs must cover every shard row, including
+    shards whose rows are all empty."""
     from sblas.formats import COO, coo_to_csr
 
     rng = np.random.default_rng(30)
@@ -266,8 +258,9 @@ def test_dist_pseg_trailing_empty_rows(mesh8):
     cols = rng.integers(0, m, 9000)
     a = coo_to_csr(COO((m, m), rows, cols,
                        rng.standard_normal(9000).astype(np.float32)))
-    p = DistSpmvPlan(a.astype(np.float32), mesh8, local_method="pseg",
-                     min_fill=0.0)
     x = rng.standard_normal(m).astype(np.float32)
-    y = np.asarray(p(x))
-    assert rel_err(y, spmv_golden(a, x)) < 1e-4
+    for strategy in ("nnz_balanced", "nnz_split"):
+        p = DistSpmvPlan(a.astype(np.float32), mesh8, strategy=strategy)
+        y = np.asarray(p(x))
+        assert np.all(y[900:] == 0.0)
+        assert rel_err(y, spmv_golden(a, x)) < 1e-4

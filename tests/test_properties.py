@@ -54,58 +54,100 @@ def test_spmv_methods_agree_random(seed):
         assert rel_err(y, ref) < 1e-10, meth
 
 
+def _random_coo_csr(rng, max_m=600, max_n=600, div=6):
+    m = int(rng.integers(1, max_m))
+    n = int(rng.integers(1, max_n))
+    nnz = int(rng.integers(0, max(m * n // div, 1)))
+    coo = COO((m, n), rng.integers(0, m, nnz), rng.integers(0, n, nnz),
+              rng.standard_normal(nnz).astype(np.float32))
+    return coo_to_csr(coo).astype(np.float32)
+
+
+def _ell_to_dense(col, val, m, n):
+    dense = np.zeros((col.shape[0], n))
+    np.add.at(dense, (np.repeat(np.arange(col.shape[0]), col.shape[1]),
+                      col.ravel()), val.ravel())
+    return dense[:m]
+
+
 @pytest.mark.parametrize("seed", range(4))
-def test_wsell_pack_random_roundtrip(seed):
-    from sblas.retile_wsell import pack_wsell, wsell_to_dense
+def test_ell_pack_random_roundtrip(seed):
+    from sblas.retile import to_ell
 
-    rng = np.random.default_rng(200 + seed)
-    m = int(rng.integers(8, 200))
-    n = int(rng.integers(8, 500))
-    a = datasets.random_csr(m, n, float(rng.integers(1, 8)),
-                            bandwidth=int(rng.integers(4, 60)),
-                            seed=seed, dtype=np.float32)
-    w = pack_wsell(a)
-    np.testing.assert_allclose(wsell_to_dense(w), a.todense(), rtol=1e-6)
-
-
-@pytest.mark.parametrize("seed", range(4))
-def test_wsell_native_matches_python(seed):
-    """The C++ packer and the Python packer must produce equivalent layouts
-    (same reconstruction; stats may differ only in round order)."""
-    from sblas import native
-    from sblas.retile_wsell import pack_wsell, wsell_to_dense
-
-    if not native.have_native():
-        pytest.skip("no native lib")
-    rng = np.random.default_rng(300 + seed)
-    m = int(rng.integers(16, 300))
-    a = datasets.random_csr(m, m, 6, bandwidth=40, seed=seed,
-                            dtype=np.float32)
-    w_native = pack_wsell(a)  # f32 -> native path
-    a64 = a.astype(np.float64)
-    w_py = pack_wsell(a64)    # f64 -> python path
-    np.testing.assert_allclose(wsell_to_dense(w_native),
-                               wsell_to_dense(w_py).astype(np.float32),
-                               rtol=1e-6)
+    a = _random_coo_csr(np.random.default_rng(200 + seed))
+    e = to_ell(a)
+    assert e.col.shape[1] % 8 == 0 and e.col.shape[0] % 8 == 0
+    np.testing.assert_allclose(_ell_to_dense(e.col, e.val, *a.shape),
+                               a.to_scipy().toarray(), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("seed", range(6))
-def test_pseg_pack_random_roundtrip(seed):
-    """PSEG (native or python builder) must reconstruct the matrix exactly,
-    including stragglers, for arbitrary random structure."""
-    from sblas.retile_pseg import pack_pseg, pseg_to_dense
+def test_bucket_pack_random_roundtrip(seed):
+    """Degree buckets with heavy-row splitting reconstruct the matrix
+    exactly: every slot's partial row lands on its row through ``perm``."""
+    from sblas.retile import to_bucket_ell
 
     rng = np.random.default_rng(100 + seed)
-    m = int(rng.integers(1, 600))
-    n = int(rng.integers(1, 600))
-    nnz = int(rng.integers(0, max(m * n // 6, 1)))
-    coo = COO((m, n), rng.integers(0, m, nnz), rng.integers(0, n, nnz),
-              rng.standard_normal(nnz).astype(np.float32))
-    a = coo_to_csr(coo).astype(np.float32)
-    w = pack_pseg(a, cache=False, divert_below=int(rng.integers(0, 64)))
-    np.testing.assert_allclose(
-        pseg_to_dense(w)[: a.shape[0], : a.shape[1]],
-        a.to_scipy().toarray(), rtol=1e-6, atol=1e-6)
+    a = _random_coo_csr(rng, div=4)
+    be = to_bucket_ell(a, max_width=int(rng.integers(8, 64)))
+    m, n = a.shape
+    dense = np.zeros((m + 1, n))
+    start = 0
+    for b in be.buckets:
+        r = b.col.shape[0]
+        part = _ell_to_dense(b.col, b.val, r, n)
+        np.add.at(dense, be.perm[start:start + r], part)
+        start += r
+    np.testing.assert_allclose(dense[:m], a.to_scipy().toarray(),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_bsr_pack_random_roundtrip(seed):
+    from sblas.retile_bsr import pack_bsr
+
+    a = _random_coo_csr(np.random.default_rng(400 + seed), div=20)
+    b = pack_bsr(a, br=32, bc=32)
+    dense = np.zeros((b.num_brows * 32, b.num_bcols * 32))
+    for blk, r, c in zip(b.blocks, b.brow, b.bcol):
+        dense[r * 32:(r + 1) * 32, c * 32:(c + 1) * 32] += blk
+    np.testing.assert_allclose(dense[: a.shape[0], : a.shape[1]],
+                               a.to_scipy().toarray(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_stack_rows_random_roundtrip(seed):
+    """The distributed local layout reconstructs every device's rows, under
+    a row split and an nnz split, for ELL and bucket geometries."""
+    from sblas.parallel.local import local_parts, stack_rows
+
+    rng = np.random.default_rng(500 + seed)
+    a = (datasets.powerlaw_graph(int(rng.integers(200, 900)), 8, seed=seed,
+                                 dtype=np.float32)
+         if seed % 2 else _random_coo_csr(rng, div=8))
+    m, n = a.shape
+    want = a.to_scipy().toarray()
+    for strategy in ("nnz_balanced", "nnz_split"):
+        parts, row_starts, row_base = local_parts(a, 4, strategy)
+        st = (stack_rows(parts, np.float32, out_rows=m, row_base=row_base)
+              if row_base else stack_rows(parts, np.float32))
+        got = np.zeros((m, n))
+        for d in range(4):
+            out = np.zeros((st.out_rows + 1, n))
+            start = 0
+            for col, val in st.buckets:
+                r = col.shape[1]
+                part = _ell_to_dense(col[d], val[d], r, n)
+                rows = (np.arange(r) if st.perm is None
+                        else st.perm[d, start:start + r])
+                np.add.at(out, rows, part)
+                start += r
+            if row_base:
+                got += out[:m]
+            else:
+                r0, r1 = row_starts[d], row_starts[d + 1]
+                got[r0:r1] = out[: r1 - r0]
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("seed", range(6))

@@ -86,9 +86,9 @@ def test_dist_bicgstab_nonsymmetric():
     assert err < 1e-5
 
 
-def test_dist_cg_pseg_local_body():
-    # scattered SPD matrix: graph Laplacian + I routes the local body to
-    # PSEG (w-SELL refuses the fill); apply_pure pays the device colperm
+def test_dist_cg_bucket_local_body():
+    # scattered SPD matrix: graph Laplacian + I has power-law rows, so the
+    # local body is degree buckets with a scatter-add merge
     g = datasets.powerlaw_graph(4096, avg_deg=12, seed=3,
                                 dtype=np.float32)
     s = g.to_scipy()
@@ -96,8 +96,8 @@ def test_dist_cg_pseg_local_body():
     lap = (-s).tolil()
     lap.setdiag(np.asarray(s.sum(axis=1)).ravel() + 1.0)
     a = CSR.from_scipy(lap.tocsr()).astype(np.float32)
-    plan = DistSpmvPlan(a, local_method="pseg", min_fill=0.1)
-    assert plan.local_method == "pseg"
+    plan = DistSpmvPlan(a)
+    assert plan.local_method == "bucket"
     b = np.random.default_rng(13).standard_normal(a.shape[0]).astype(
         np.float32)
     x, info = dist_cg(plan, b, tol=1e-5, maxiter=2000)

@@ -1,4 +1,3 @@
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -64,7 +63,7 @@ def test_spmm_auto_picks_bsr_for_block_dense():
 
 def test_spmm_bucket_apply_pure():
     # bucket device_arrays/apply_pure used to raise NotImplementedError,
-    # crashing bench_spmm on skew-selected matrices (VERDICT r1 weak #3)
+    # crashing bench_spmm on skew-selected matrices
     import jax
 
     a = datasets.random_csr(500, 500, 10, skew=1.0, seed=7, dtype=np.float32)
@@ -74,354 +73,134 @@ def test_spmm_bucket_apply_pure():
     assert rel_err(y, spmm_golden(a, x)) < 2e-5
 
 
-def test_spmm_auto_pallas_on_accelerator():
-    # auto must pick the dense-block MXU path on non-cpu f32 for
-    # panel-clustered matrices and fall back on scattered input
+CLASSES = {
+    "fem": lambda dt: datasets.emulate("cant", scale=0.005, dtype=dt),
+    "graph": lambda dt: datasets.emulate("uk-2002", scale=0.0002, dtype=dt),
+    "band": lambda dt: datasets.banded(400, 20, seed=8, dtype=dt),
+}
+METHODS = ["ell", "bucket", "bsr", "spmv_passes"]
+
+
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("matrix", list(CLASSES))
+@pytest.mark.parametrize("method", METHODS)
+def test_spmm_routes_vs_scipy(method, matrix, dtype, k):
+    """Every XLA route through the public entry point, against scipy."""
+    import sblas
+
+    a = CLASSES[matrix](dtype)
+    x = np.random.default_rng(k).standard_normal((a.shape[1], k)).astype(
+        dtype)
+    got = np.asarray(sblas.spmm(a, x, method=method))
+    assert got.dtype == dtype and got.shape == (a.shape[0], k)
+    assert rel_err(got, spmm_golden(a, x.astype(np.float64))) < \
+        default_tol(dtype), (method, matrix, k)
+
+
+@pytest.mark.parametrize("ab", [(1.0, 0.0), (2.0, -0.5)])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("method", METHODS)
+def test_spmm_trans_alpha_beta(method, trans, ab):
+    import sblas
+
+    a = datasets.random_csr(180, 140, 7, seed=12, dtype=np.float64)
+    alpha, beta = ab
+    m, n = (140, 180) if trans else (180, 140)
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((n, 8))
+    y0 = rng.standard_normal((m, 8))
+    got = np.asarray(sblas.spmm(a, x, alpha, beta, y0 if beta else None,
+                                trans=trans, method=method))
+    at = a.to_scipy().T.tocsr() if trans else a.to_scipy()
+    assert rel_err(got, alpha * (at @ x) + beta * y0) < 1e-11
+
+
+@pytest.mark.parametrize("platform", ["cpu", "gpu"])
+@pytest.mark.parametrize("matrix,route", [("dense-band", "bsr"),
+                                          ("graph", "bucket")])
+def test_spmm_auto_route_by_platform(monkeypatch, platform, matrix, route):
+    """Route choice reads the matrix: dense blocks for a band that fills
+    its 128x128 blocks, degree buckets for a power-law graph, on either
+    platform."""
     import sblas.utils.backend as be
 
-    a = datasets.emulate("cant", scale=0.1, dtype=np.float32)
-    scattered = datasets.powerlaw_graph(3000, 10, seed=5, dtype=np.float32)
-    saved = be._BACKEND
-    be._BACKEND = "tpu"
-    try:
-        assert SpmmPlan(a, "auto").method == "bsr_pallas_t"
-        # with divert=0 packing (round 4), even small power-law graphs stay
-        # on the PSEG fast path instead of the XLA bucket fallback
-        assert SpmmPlan(scattered, "auto").method == "pseg"
-        # a k hint past the transposed kernel's VMEM ceiling routes to the
-        # (rows, K) BSR kernel up front
-        assert SpmmPlan(a, "auto", k_hint=8192).method == "bsr_pallas"
-    finally:
-        be._BACKEND = saved
+    monkeypatch.setattr(be, "platform", lambda: platform)
+    a = (datasets.banded(512, 40, seed=33, dtype=np.float32)
+         if matrix == "dense-band" else CLASSES[matrix](np.float32))
+    assert SpmmPlan(a, "auto").method == route
 
 
-@pytest.mark.parametrize("k", [8, 32])
-def test_spmm_bsr_pallas_interpret(k):
+def test_spmm_auto_bsr_respects_device_memory(monkeypatch):
+    """The dense-block route is taken only if its blocks fit a quarter of
+    the device's memory, as the device reports it."""
+    import sblas.utils.backend as be
+
+    a = datasets.banded(512, 40, seed=33, dtype=np.float32)
+    monkeypatch.setattr(be, "device_bytes_limit", lambda: 1 << 40)
+    assert SpmmPlan(a, "auto").method == "bsr"
+    monkeypatch.setattr(be, "device_bytes_limit", lambda: 1 << 20)
+    assert SpmmPlan(a, "auto").method == "ell"
+
+
+def test_spmm_intermediate_budget_from_device(monkeypatch):
+    """The gather chunk budget is a sixteenth of the device's memory."""
+    import sblas.utils.backend as be
+
+    a = datasets.random_csr(64, 64, 4, seed=2, dtype=np.float32)
+    monkeypatch.setattr(be, "device_bytes_limit", lambda: 64 << 30)
+    assert SpmmPlan(a, "ell")._intermediate == 4 << 30
+    monkeypatch.setattr(be, "device_bytes_limit", lambda: None)
+    assert SpmmPlan(a, "ell")._intermediate == 256 << 20
+    assert SpmmPlan(a, "ell", intermediate_mb=1)._intermediate == 1 << 20
+
+
+def test_spmm_unknown_method_rejected():
+    a = datasets.random_csr(8, 8, 2, seed=0)
+    for bad in ("pallas", "pseg", "bsr_pallas", "bsr_pallas_t", "pallas_ds"):
+        with pytest.raises(ValueError, match="unknown spmm method"):
+            SpmmPlan(a, bad)
+
+
+def _dot_precisions(fn, *args):
     import jax
 
-    a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
-    x = np.random.default_rng(70 + k).standard_normal(
-        (a.shape[1], k)).astype(np.float32)
-    plan = SpmmPlan(a, "bsr_pallas")
-    y = np.asarray(jax.jit(plan.apply_pure)(plan.device_arrays(), x))
-    assert rel_err(y, spmm_golden(a, x)) < 2e-5
-    # alpha/beta epilogue via __call__
-    y0 = np.random.default_rng(71).standard_normal(
-        (a.shape[0], k)).astype(np.float32)
-    out = np.asarray(plan(x, alpha=2.0, beta=-0.5, y=y0))
-    assert rel_err(out, spmm_golden(a, x, alpha=2.0, beta=-0.5, y=y0)) < 2e-5
+    text = jax.jit(fn).lower(*args).as_text()
+    return [line for line in text.splitlines() if "dot_general" in line]
 
 
-def test_spmm_bsr_pallas_bf16_values():
-    a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
-    x = np.random.default_rng(72).standard_normal(
-        (a.shape[1], 8)).astype(np.float32)
-    plan = SpmmPlan(a, "bsr_pallas", value_dtype="bfloat16")
-    assert rel_err(np.asarray(plan(x)), spmm_golden(a, x)) < 2e-2
-
-
-@pytest.mark.parametrize("k", [5, 8, 32])
-def test_spmm_bsr_pallas_t_interpret(k):
-    import jax
-
-    a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
-    x = np.random.default_rng(80 + k).standard_normal(
-        (a.shape[1], k)).astype(np.float32)
-    plan = SpmmPlan(a, "bsr_pallas_t")
-    y = np.asarray(jax.jit(plan.apply_pure)(plan.device_arrays(), x))
-    assert rel_err(y, spmm_golden(a, x)) < 2e-5
-    y0 = np.random.default_rng(81).standard_normal(
-        (a.shape[0], k)).astype(np.float32)
-    out = np.asarray(plan(x, alpha=2.0, beta=-0.5, y=y0))
-    assert rel_err(out, spmm_golden(a, x, alpha=2.0, beta=-0.5, y=y0)) < 2e-5
-
-
-def test_spmm_bsr_pallas_t_bf16_values():
-    a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
-    x = np.random.default_rng(82).standard_normal(
-        (a.shape[1], 8)).astype(np.float32)
-    plan = SpmmPlan(a, "bsr_pallas_t", value_dtype="bfloat16")
-    assert rel_err(np.asarray(plan(x)), spmm_golden(a, x)) < 2e-2
-
-
-def test_spmm_bsr_t_unified_range_shapes(monkeypatch):
-    # multi-range plans pad every range to one (T_max, rb_max) shape so a
-    # SINGLE compiled pallas_call serves all ranges (R distinct shapes
-    # meant R sequential remote compiles — pwtk K=32's 22-range build
-    # looked like a hang to the suite watchdog)
-    from sblas.ops.kernels import spmm_bsr_pallas as mod
-
-    a = datasets.emulate("cant", scale=0.1, dtype=np.float32)
-    x = np.random.default_rng(11).standard_normal(
-        (a.shape[1], 8)).astype(np.float32)
-    ref = spmm_golden(a, x)
-    monkeypatch.setattr(mod, "_VMEM_T_LIMIT", 300 * 1024)
-    p = mod.PallasSpmmBsrT(a, k_hint=8)
-    assert p.R > 1 and not p._slice_pcols
-    assert len(set(p._tiles)) == 1
-    calls = p._get_calls(8)
-    assert all(c is calls[0] for c in calls)
-    assert rel_err(np.asarray(p.apply_traced(jnp.asarray(x))), ref) < 2e-5
-    monkeypatch.setattr(mod, "_VMEM_T_LIMIT", 120 * 1024)
-    p2 = mod.PallasSpmmBsrT(a, k_hint=8)
-    assert p2.R > 1 and p2._slice_pcols
-    calls2 = p2._get_calls(8)
-    assert all(c is calls2[0] for c in calls2)
-    assert rel_err(np.asarray(p2.apply_traced(jnp.asarray(x))), ref) < 2e-5
-
-
-def test_spmm_pallas_blocked_windowed_x(monkeypatch):
-    # when Xt (k, x2d_rows, 128) busts the whole-VMEM limit the w-SELL SpMM
-    # switches to blocked-y + windowed-x: one pallas_call per y block over a
-    # per-block SLICE of Xt (band locality keeps the window narrow) — the
-    # path fem-band-1M K=8 needs instead of the 569 ms XLA ell fallback
-    from sblas.ops.kernels import spmm_pallas as mod
-
-    a = datasets.random_csr(6000, 6000, 30, bandwidth=300, seed=3,
+@pytest.mark.parametrize("method", ["ell", "bucket", "bsr"])
+def test_f32_contractions_run_at_highest_precision(method):
+    """A float32 dot may run in TF32 on a GPU unless asked otherwise:
+    every contraction of the K-wide routes carries precision HIGHEST in
+    the lowered program."""
+    a = datasets.random_csr(300, 300, 9, skew=1.2, bandwidth=40, seed=4,
                             dtype=np.float32)
-    x = np.random.default_rng(5).standard_normal((6000, 8)).astype(np.float32)
-    ref = spmm_golden(a, x)
-    monkeypatch.setattr(mod, "_VMEM_XT_LIMIT", 120 * 1024)
-    monkeypatch.setattr(mod, "_YBLOCKS", 8)
-    p = mod.PallasSpmm(a, k_hint=8)
-    assert p.blocked and p.layout.num_yblks > 1
-    assert p.win * 128 < a.shape[1]     # genuinely windowed, not whole-x
-    assert rel_err(np.asarray(p.apply_traced(jnp.asarray(x))), ref) < 2e-5
-    # a second k reuses the same windows
-    x5 = np.random.default_rng(6).standard_normal((6000, 5)).astype(
-        np.float32)
-    assert rel_err(np.asarray(p.apply_traced(jnp.asarray(x5))),
-                   spmm_golden(a, x5)) < 2e-5
-    # scattered columns must refuse (window would span all of x)
-    b = datasets.random_csr(6000, 6000, 4, seed=9, dtype=np.float32)
-    with pytest.raises(ValueError):
-        mod.PallasSpmm(b, k_hint=8, min_fill=0.0)
+    x = np.ones((300, 8), np.float32)
+    plan = SpmmPlan(a, method)
+    dots = _dot_precisions(plan.apply_pure, plan.device_arrays(), x)
+    assert dots, "no contraction lowered"
+    assert all("precision = [HIGHEST, HIGHEST]" in d for d in dots), dots
 
 
-def test_spmm_bsr_pallas_t_vmem_guard_falls_back():
-    # Xt whole-in-VMEM past the compile ceiling (e13b/e13c) must refuse
-    # per-K, and __call__ must degrade to a REBUILT transposed plan in
-    # streamed-Xt mode (stays on the block-DMA roofline), not XLA.
-    a = datasets.emulate("cant", scale=0.03, dtype=np.float32)
-    plan = SpmmPlan(a, "bsr_pallas_t")
-    with pytest.raises(ValueError):
-        plan._pallas._get_calls(8192)
-    x = np.random.default_rng(83).standard_normal(
-        (a.shape[1], 2048)).astype(np.float32)
-    y = np.asarray(plan(x))   # falls back internally
-    assert plan._fb and plan._fb[2048].method == "bsr_pallas_t"
-    assert plan._fb[2048]._pallas._slice_pcols > 0   # streamed-Xt mode
-    assert rel_err(y, spmm_golden(a, x)) < 2e-5
+def test_spmv_bsr_and_sptrsm_contractions_at_highest_precision():
+    from sblas.ops.spmv import SpmvPlan
+    from sblas.ops.sptrsm import SptrsmPlan
 
-
-def test_spmm_bsr_pallas_t_k32_replans_split(monkeypatch):
-    # A plan built for k_hint=8 must serve a K needing a different
-    # block-row split by REBUILDING the transposed kernel for that K
-    # (measured 109% of triad on consph K=32 row-split vs 63.9% for the
-    # (rows, K) kernel the old chain degraded to; VERDICT r1 item 2).
-    import sblas.ops.kernels.spmm_bsr_pallas as mod
-
-    a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
-    npanels = -(-a.shape[1] // 128)
-    # ceiling: k=8 fits whole (R=1), k=32 needs a split (R>1) but Xt fits
-    lim = 32 * npanels * 128 * 4 + 10 * 32 * 128 * 4
-    monkeypatch.setattr(mod, "_VMEM_T_LIMIT", lim)
-    plan = SpmmPlan(a, "bsr_pallas_t", k_hint=8)
-    assert plan._pallas.R == 1
-    k = 32
-    x = np.random.default_rng(85).standard_normal(
-        (a.shape[1], k)).astype(np.float32)
-    y = np.asarray(plan(x))
-    fb = plan._fb[k]
-    assert fb.method == "bsr_pallas_t" and fb._pallas.R > 1
-    assert rel_err(y, spmm_golden(a, x)) < 2e-5
-    # second call reuses the cached per-k fallback
-    y2 = np.asarray(plan(x))
-    assert plan._fb[k] is fb
-    assert rel_err(y2, spmm_golden(a, x)) < 2e-5
-
-
-def test_spmm_bsr_pallas_t_row_split(monkeypatch):
-    # When Xt + whole Yt would exceed the VMEM ceiling but Xt still fits,
-    # the kernel splits the block stream into block-row ranges (one
-    # pallas_call each) instead of leaving the roofline (cant/consph K=32
-    # regime). Force R > 1 by shrinking the ceiling.
-    import jax
-
-    import sblas.ops.kernels.spmm_bsr_pallas as mod
-
-    a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
-    k = 8
-    kp = 8
-    npanels = -(-a.shape[1] // 128)
-    xt = kp * npanels * 128 * 4
-    monkeypatch.setattr(mod, "_VMEM_T_LIMIT", xt + 10 * kp * 128 * 4)
-    plan = SpmmPlan(a, "bsr_pallas_t", k_hint=k)
-    assert plan._pallas.R > 1
-    x = np.random.default_rng(84).standard_normal(
-        (a.shape[1], k)).astype(np.float32)
-    y = np.asarray(jax.jit(plan.apply_pure)(plan.device_arrays(), x))
-    assert rel_err(y, spmm_golden(a, x)) < 2e-5
-    # bytes model counts the (R-1) extra Xt stagings
-    assert plan.bytes_per_iter_nx > plan._pallas.R // 2 * xt
-
-
-def test_spmm_bsr_pallas_rejects_scattered():
-    scattered = datasets.powerlaw_graph(3000, 4, seed=5, dtype=np.float32)
-    with pytest.raises(ValueError):
-        SpmmPlan(scattered, "bsr_pallas")
-
-
-def test_spmm_wsell_pallas_unroll_guard_falls_back():
-    # K=32 at th=1024/wgroup=4 would unroll ngrp*k=1024 bodies, which
-    # crashes the Mosaic compiler (measured round 3); the plan must refuse
-    # at call time and delegate to the XLA fallback instead.
-    a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
-    x = np.random.default_rng(73).standard_normal(
-        (a.shape[1], 32)).astype(np.float32)
-    plan = SpmmPlan(a, "pallas")
-    with pytest.raises(ValueError):
-        plan._pallas._get_call(32)
-    y = np.asarray(plan(x))   # falls back internally
-    assert rel_err(y, spmm_golden(a, x)) < 2e-5
-
-
-def test_spmm_pallas_apply_pure_interpret():
-    import jax
-
-    a = datasets.emulate("cant", scale=0.1, dtype=np.float32)
-    x = np.random.default_rng(9).standard_normal((a.shape[1], 8)).astype(np.float32)
-    plan = SpmmPlan(a, "pallas")
-    y = np.asarray(jax.jit(plan.apply_pure)(plan.device_arrays(), x))
-    assert rel_err(y, spmm_golden(a, x)) < 2e-5
-
-
-def test_spmm_pseg_scattered_path():
-    import jax
-
-    g = datasets.emulate("twitter7", scale=0.002, dtype=np.float32)
-    plan = SpmmPlan(g, "pseg")
-    for k in (8, 11):
-        x = np.random.default_rng(60 + k).standard_normal(
-            (g.shape[1], k)).astype(np.float32)
-        y = np.asarray(jax.jit(plan.apply_pure)(plan.device_arrays(), x))
-        assert rel_err(y, spmm_golden(g, x)) < 1e-5
-
-
-def test_spmm_auto_chain_to_pseg():
-    import sblas.utils.backend as be
-
-    g = datasets.emulate("uk-2002", scale=0.003, dtype=np.float32)
-    saved = be._BACKEND
-    be._BACKEND = "tpu"
-    try:
-        assert SpmmPlan(g, "auto").method == "pseg"
-    finally:
-        be._BACKEND = saved
-
-
-def test_spmm_auto_band_scattered_k_aware_routing():
-    # e30 (band1500-100K, chip): the density cutoff is k-aware — dense
-    # blocks stream once for all k RHS while passes pay k * ~6/fill B/nnz.
-    # At density 0.034 / fill ~0.42 the cutoff ~0.53*fill/k accepts BSR-T
-    # for k=8 (measured 1707 vs 2021 us) but refuses k=2, which falls to
-    # the e29 frontier: w-SELL-eligible matrices run k DMA-bound SpMV
-    # passes (2.16 ms vs 2.66 for the w-SELL SpMM kernel at k=8).
-    import sblas.utils.backend as be
-
-    a = datasets.random_csr(20_000, 20_000, 112, bandwidth=1500, seed=7,
-                            dtype=np.float32)
-    saved = be._BACKEND
-    be._BACKEND = "tpu"
-    try:
-        plan8 = SpmmPlan(a, "auto", k_hint=8)
-        assert plan8.method == "bsr_pallas_t"
-        assert "bsr_pallas_t" in plan8.route_reason
-        plan2 = SpmmPlan(a, "auto", k_hint=2)
-        assert plan2.method == "spmv_passes"
-        assert plan2._spmv.method == "pallas"
-        assert "spmv_passes" in plan2.route_reason
-    finally:
-        be._BACKEND = saved
-
-
-def test_spmm_auto_pseg_cost_route_shipped_threshold():
-    # VERDICT r4 item 2: prove the SHIPPED _KRES_PASSES_CUT (0.30) flips
-    # the route with no monkeypatching. Same scattered matrix, routed by
-    # k_hint: at k=1/k=2 the whole-VMEM executor runs one pass either way
-    # so the pseg/passes bytes ratio sits near 1/k >= 0.5 -> re-route to
-    # spmv_passes; at k=8 the single kc=8 pass prices ~1/8 of passes
-    # (< 0.30) -> stays pseg. This covers both sides of the threshold at
-    # its shipped value (the old test forced CUT=0 and only proved the
-    # mechanism).
-    import sblas.utils.backend as be
-    from sblas.ops.spmm import _KRES_PASSES_CUT
-
-    assert _KRES_PASSES_CUT == 0.30   # test is calibrated to the shipped cut
-    g = datasets.emulate("uk-2002", scale=0.003, dtype=np.float32)
-    saved = be._BACKEND
-    be._BACKEND = "tpu"
-    try:
-        for k in (1, 2):
-            plan = SpmmPlan(g, "auto", k_hint=k)
-            assert plan.method == "spmv_passes", (k, plan.route_reason)
-            assert ">= 0.3" in plan.route_reason
-        plan8 = SpmmPlan(g, "auto", k_hint=8)
-        assert plan8.method == "pseg", plan8.route_reason
-        assert "< 0.3" in plan8.route_reason
-    finally:
-        be._BACKEND = saved
-
-
-def test_spmm_auto_pseg_cost_route_to_passes(monkeypatch):
-    # scale-aware route pick (VERDICT r3 item 2): when the kres-PSEG bytes
-    # model is not clearly below k SpMV passes priced from the same pack,
-    # auto re-routes to spmv_passes (the powerlaw-1M-102M regime, where
-    # kres measured 1.65-1.89x its own passes bound). Forced here by
-    # dropping the threshold to 0: any scattered matrix flips.
-    import sys
-
-    import jax
-    import sblas.utils.backend as be
-
-    # sblas.ops.__init__ re-exports the spmm FUNCTION over the module
-    # attribute; fetch the module itself for the monkeypatch
-    spmm_mod = sys.modules["sblas.ops.spmm"]
-
-    g = datasets.emulate("uk-2002", scale=0.003, dtype=np.float32)
-    saved = be._BACKEND
-    be._BACKEND = "tpu"
-    monkeypatch.setattr(spmm_mod, "_KRES_PASSES_CUT", 0.0)
-    try:
-        plan = SpmmPlan(g, "auto", k_hint=8)
-        assert plan.method == "spmv_passes"
-        assert plan._spmv.method == "pseg"
-        assert ">=" in plan.route_reason
-    finally:
-        be._BACKEND = saved
-    # the re-routed shape must be correct end-to-end, including the hoisted
-    # permutes around the k-pass loop — rebuilt on the real CPU backend so
-    # the pseg kernel runs in interpret mode
-    plan = SpmmPlan(g, "spmv_passes", k_hint=4, spmv_method="pseg")
-    assert plan._spmv.method == "pseg"
-    x = np.random.default_rng(5).standard_normal(
-        (g.shape[1], 4)).astype(np.float32)
-    y = np.asarray(jax.jit(plan.apply_pure)(plan.device_arrays(), x))
-    assert rel_err(y, spmm_golden(g, x)) < 2e-5
-    # permuted space round-trips through the same column passes:
-    # y = y_perm[rowinv] (the two gathers iterative users amortize)
-    ps = plan._spmv._pallas
-    xp = jnp.asarray(x[np.asarray(ps.colperm), :])
-    yp = np.asarray(jax.jit(plan.apply_permuted)(plan.device_arrays(), xp))
-    rowperm = np.asarray(ps.rowperm)
-    inv_row = np.empty(g.shape[0], dtype=np.int64)
-    inv_row[rowperm] = np.arange(g.shape[0])
-    assert rel_err(yp[inv_row, :], y) < 1e-6
+    a = datasets.banded(300, 20, seed=5, dtype=np.float32)
+    p = SpmvPlan(a, "bsr")
+    dots = _dot_precisions(p.apply_pure, p.device_arrays(),
+                           np.ones(300, np.float32))
+    l = datasets.lower_triangular(200, 5, seed=6, dtype=np.float32)
+    t = SptrsmPlan(l, method="tiles")
+    dots += _dot_precisions(t.apply_pure, t.device_arrays(),
+                            np.ones((200, 4), np.float32))
+    assert len(dots) >= 2
+    assert all("precision = [HIGHEST, HIGHEST]" in d for d in dots), dots
 
 
 def test_spmm_spmv_passes_method():
-    # the last-resort web-scale fallback: k SpMV passes over one shared
-    # SpmvPlan (r8: powerlaw-1M-102M kres Mosaic compile crash)
+    # k SpMV passes over one shared SpmvPlan
     import jax
 
     a = datasets.emulate("cant", scale=0.1, dtype=np.float32)
@@ -436,28 +215,3 @@ def test_spmm_spmv_passes_method():
         (a.shape[0], 8)).astype(np.float32)
     out = np.asarray(plan(x, alpha=2.0, beta=-0.5, y=yv))
     assert rel_err(out, 2.0 * spmm_golden(a, x) - 0.5 * yv) < 2e-5
-
-
-def test_spmm_fallback_chain_reaches_spmv_passes(monkeypatch):
-    # force every pallas SpMM candidate to fail at build so _fallback_for
-    # lands on spmv_passes rather than the XLA heuristic
-    import importlib
-
-    spmm_mod = importlib.import_module("sblas.ops.spmm")
-
-    a = datasets.emulate("cant", scale=0.05, dtype=np.float32)
-    plan = SpmmPlan(a, "pallas")
-
-    real_init = spmm_mod.SpmmPlan.__init__
-
-    def failing_init(self, a2, method="auto", **kw):
-        if method in ("pallas", "pseg", "bsr_pallas", "bsr_pallas_t"):
-            raise ValueError("forced candidate failure")
-        return real_init(self, a2, method, **kw)
-
-    monkeypatch.setattr(spmm_mod.SpmmPlan, "__init__", failing_init)
-    fb = plan._fallback_for(8)
-    assert fb.method == "spmv_passes"
-    x = np.random.default_rng(5).standard_normal(
-        (a.shape[1], 8)).astype(np.float32)
-    assert rel_err(np.asarray(fb(x)), spmm_golden(a, x)) < 2e-5

@@ -3,7 +3,7 @@ import pytest
 
 from sblas import datasets
 from sblas.golden import spmv_golden, rel_err, default_tol
-from sblas.ops.spmv import SpmvPlan, spmv
+from sblas.ops.spmv import SpmvPlan
 
 
 MATRICES = {
@@ -100,84 +100,72 @@ def test_spmv_bsr_f64():
     assert rel_err(y, spmv_golden(a, x)) < 1e-11
 
 
-def test_spmv_pseg_scattered_path():
-    # PSEG (hub-relabeled packed-segment) path: the scattered/power-law fast
-    # path (VERDICT r1 item 6). Must validate via the drop-in API and pack
-    # at materially higher fill than w-SELL on graph inputs.
-    import jax
-
-    g = datasets.emulate("uk-2002", scale=0.003, dtype=np.float32)
-    plan = SpmvPlan(g, "pseg")
-    x = np.random.default_rng(50).standard_normal(g.shape[1]).astype(np.float32)
-    y = np.asarray(jax.jit(plan.apply_pure)(plan.device_arrays(), x))
-    assert rel_err(y, spmv_golden(g, x)) < 1e-5
-    assert plan.fill > 0.5
-    # alpha/beta epilogue through the public entry point
-    y0 = np.random.default_rng(51).standard_normal(g.shape[0]).astype(np.float32)
-    y2 = np.asarray(spmv(g, x, alpha=2.0, beta=0.5, y=y0, method="pseg"))
-    assert rel_err(y2, 2.0 * spmv_golden(g, x) + 0.5 * y0) < 1e-5
+# one matrix per class the routes are chosen for: FEM (regular rows near
+# the diagonal), graph (power-law rows, scattered columns), band
+CLASSES = {
+    "fem": lambda dt: datasets.emulate("cant", scale=0.005, dtype=dt),
+    "graph": lambda dt: datasets.emulate("uk-2002", scale=0.0002, dtype=dt),
+    "band": lambda dt: datasets.banded(400, 20, seed=8, dtype=dt),
+}
 
 
-def test_spmv_auto_chain_to_pseg():
-    # auto on a simulated accelerator must fall w-SELL -> PSEG on power-law
+@pytest.mark.parametrize("ab", [(1.0, 0.0), (-1.5, 0.75)])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("matrix", list(CLASSES))
+@pytest.mark.parametrize("method", ["coo", "ell", "bucket", "bsr"])
+def test_spmv_routes_vs_scipy(method, matrix, dtype, trans, ab):
+    """Every XLA route through the public entry point, against scipy."""
+    import sblas
+
+    a = CLASSES[matrix](dtype)
+    alpha, beta = ab
+    m, n = (a.shape[1], a.shape[0]) if trans else a.shape
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal(n).astype(dtype)
+    y0 = rng.standard_normal(m).astype(dtype)
+    got = np.asarray(sblas.spmv(a, x, alpha, beta, y0 if beta else None,
+                                trans=trans, method=method))
+    at = a.to_scipy().T.tocsr() if trans else a.to_scipy()
+    want = alpha * (at @ x.astype(np.float64)) + beta * y0
+    assert got.dtype == dtype
+    assert rel_err(got, want) < default_tol(dtype), (method, matrix)
+
+
+@pytest.mark.parametrize("platform", ["cpu", "gpu"])
+@pytest.mark.parametrize("matrix,route", [("fem", "ell"), ("band", "ell"),
+                                          ("graph", "bucket")])
+def test_spmv_auto_route_by_platform(monkeypatch, platform, matrix, route):
+    """Route choice reads the matrix, never the platform: the same XLA
+    route on a GPU as on the CPU."""
     import sblas.utils.backend as be
 
-    g = datasets.emulate("uk-2002", scale=0.003, dtype=np.float32)
-    saved = be._BACKEND
-    be._BACKEND = "tpu"
-    try:
-        plan = SpmvPlan(g, "auto")
-        assert plan.method == "pseg", plan.method
-    finally:
-        be._BACKEND = saved
+    monkeypatch.setattr(be, "platform", lambda: platform)
+    a = CLASSES[matrix](np.float32)
+    assert SpmvPlan(a, "auto").method == route
 
 
-def test_pseg_layout_roundtrip():
-    from sblas.retile_pseg import pack_pseg, pseg_to_dense
+def test_spmv_pick_layout_rule():
+    from sblas.ops.spmv import pick_layout
 
-    a = datasets.random_csr(1500, 1500, 5, seed=7, dtype=np.float32)
-    w = pack_pseg(a, cache=False)
-    np.testing.assert_allclose(pseg_to_dense(w), a.to_scipy().toarray(),
-                               rtol=0, atol=0)
-
-
-def test_pseg_hybrid_pack_roundtrip():
-    from sblas.retile_pseg import pack_pseg_hybrid, pseg_to_dense
-
-    a = datasets.powerlaw_graph(3000, 8, seed=11, dtype=np.float32)
-    w = pack_pseg_hybrid(a, cache=False)
-    assert w is not None and w.n_hub_rounds >= 0
-    assert w.num_rounds > w.n_hub_rounds  # has tail rounds
-    np.testing.assert_allclose(pseg_to_dense(w), a.to_scipy().toarray(),
-                               rtol=0, atol=0)
+    assert pick_layout(np.array([5, 5, 6, 4])) == "ell"
+    assert pick_layout(np.array([1, 1, 1, 8])) == "ell"   # fits 8 wide
+    assert pick_layout(np.array([1] * 20 + [30])) == "bucket"
+    assert pick_layout(np.array([1] * 20 + [9])) == "bucket"
+    assert pick_layout(np.zeros(0, np.int32)) == "ell"
 
 
-def test_spmv_pseg_hybrid_interpret():
-    # hybrid hub+tail stream through the kernel (interpret mode): tail
-    # rounds bind slot sublane to column panel (round 4)
-    import jax
-    from sblas.ops.kernels.spmv_pseg import PallasSpmvScattered
-
-    g = datasets.emulate("uk-2002", scale=0.003, dtype=np.float32)
-    p = PallasSpmvScattered(g, hybrid=True, min_fill=0.0)
-    assert p.layout.n_hub_rounds >= 0
-    assert p.layout.n_stragglers == 0
-    x = np.random.default_rng(52).standard_normal(g.shape[1]).astype(
-        np.float32)
-    y = np.asarray(jax.jit(p.apply_pure)(p.device_arrays(), x))
-    assert rel_err(y, spmv_golden(g, x)) < 1e-5
-    # hybrid must pack at materially higher fill than plain divert=0
-    plain = PallasSpmvScattered(g, hybrid=False, divert_below=0,
-                                min_fill=0.0)
-    assert p.layout.fill > plain.layout.fill
+def test_spmv_unknown_method_rejected():
+    a = datasets.random_csr(8, 8, 2, seed=0)
+    for bad in ("pallas", "pseg", "rcm", "pallas_ds"):
+        with pytest.raises(ValueError, match="unknown spmv method"):
+            SpmvPlan(a, bad)
 
 
-def test_pseg_trailing_empty_rows():
-    """Regression (r2 review): rows after the last nonempty 1024-block had
-    no y slot; the unpermute gather clamped them onto the last nonempty
-    row's value."""
+def test_spmv_trailing_empty_rows():
+    """Rows after the last nonempty block must come out exactly zero on
+    every route (the bucket scatter and the ELL slice both end at m)."""
     from sblas.formats import COO, coo_to_csr
-    from sblas.ops.kernels.spmv_pseg import PallasSpmvScattered
 
     rng = np.random.default_rng(0)
     m, n = 1500, 800
@@ -185,27 +173,23 @@ def test_pseg_trailing_empty_rows():
     cols = rng.integers(0, n, 30000)
     a = coo_to_csr(COO((m, n), rows, cols,
                        rng.standard_normal(30000).astype(np.float32)))
-    p = PallasSpmvScattered(a.astype(np.float32), min_fill=0.0)
     x = rng.standard_normal(n).astype(np.float32)
-    y = np.asarray(p.apply_traced(x))
-    assert np.all(y[1024:] == 0.0)
-    assert rel_err(y, spmv_golden(a, x)) < 1e-4
+    for method in ("coo", "ell", "bucket", "bsr"):
+        y = np.asarray(SpmvPlan(a, method)(x))
+        assert np.all(y[1024:] == 0.0), method
+        assert rel_err(y, spmv_golden(a, x)) < 1e-5, method
 
 
-def test_rcm_plan_call_inside_jit():
-    """Regression (r2 review): rcm __call__ used np.asarray on the traced
-    input — data-dependent jit breakage under method='auto'."""
+@pytest.mark.parametrize("method", ["coo", "ell", "bucket", "bsr"])
+def test_spmv_plan_call_inside_jit(method):
+    """A plan's __call__ and apply_pure both trace inside jit."""
     import jax
 
-    from sblas.formats import CSR
-
-    base = datasets.random_csr(2000, 2000, 40, bandwidth=60, seed=21,
-                               dtype=np.float32)
-    p_ = np.random.default_rng(22).permutation(2000)
-    s = base.to_scipy().tocsr()[p_][:, p_].tocsr()
-    s.sort_indices()
-    a = CSR.from_scipy(s).astype(np.float32)
-    plan = SpmvPlan(a, "rcm")
-    x = np.random.default_rng(23).standard_normal(2000).astype(np.float32)
-    y = np.asarray(jax.jit(lambda v: plan(v))(x))
-    assert rel_err(y, spmv_golden(a, x)) < 1e-4
+    a = datasets.emulate("uk-2002", scale=0.0002, dtype=np.float32)
+    plan = SpmvPlan(a, method)
+    x = np.random.default_rng(23).standard_normal(a.shape[1]).astype(
+        np.float32)
+    want = spmv_golden(a, x)
+    assert rel_err(np.asarray(jax.jit(lambda v: plan(v))(x)), want) < 1e-5
+    y = jax.jit(plan.apply_pure)(plan.device_arrays(), x)
+    assert rel_err(np.asarray(y), want) < 1e-5

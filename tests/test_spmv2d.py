@@ -13,23 +13,25 @@ def test_2d_ell_grids(grid):
     mesh = make_mesh2d(*grid)
     a = datasets.random_csr(600, 500, 6, seed=1, dtype=np.float32)
     x = np.random.default_rng(0).standard_normal(500).astype(np.float32)
-    p = Dist2DSpmvPlan(a, mesh, local_method="ell")
+    p = Dist2DSpmvPlan(a, mesh)
     assert p.grid == grid
+    assert p.local_method == "ell"
     assert rel_err(np.asarray(p(x)), spmv_golden(a, x)) < 1e-5
 
 
-def test_2d_pallas_body():
+def test_2d_bucket_body():
+    # power-law rows: each block's local body is degree buckets
     mesh = make_mesh2d(2, 4)
-    a = datasets.emulate("cant", scale=0.04, dtype=np.float32)
+    a = datasets.emulate("uk-2002", scale=0.003, dtype=np.float32)
     x = np.random.default_rng(1).standard_normal(a.shape[1]).astype(
         np.float32)
-    p = Dist2DSpmvPlan(a, mesh, local_method="pallas", min_fill=0.02, th=128)
-    assert p.local_method == "pallas"
+    p = Dist2DSpmvPlan(a, mesh)
+    assert p.local_method == "bucket"
     assert rel_err(np.asarray(p(x)), spmv_golden(a, x)) < 1e-4
 
 
 def test_2d_auto_picks_mesh_and_falls_back():
-    # auto mesh factorization; f64 blocks are never Pallas-servable
+    # auto mesh factorization; regular f64 rows take the ELL body
     a = datasets.random_csr(300, 300, 4, seed=2, dtype=np.float64)
     x = np.random.default_rng(2).standard_normal(300)
     p = Dist2DSpmvPlan(a)
@@ -52,7 +54,7 @@ def test_2d_empty_rows_and_rect():
     mesh = make_mesh2d(2, 4)
     a = datasets.random_csr(700, 260, 2, seed=4, dtype=np.float32)
     x = np.random.default_rng(4).standard_normal(260).astype(np.float32)
-    got = np.asarray(dist_spmv2d(a, x, mesh, local_method="ell"))
+    got = np.asarray(dist_spmv2d(a, x, mesh))
     assert rel_err(got, spmv_golden(a, x)) < 1e-5
 
 
@@ -87,35 +89,31 @@ def test_2d_spmm_alpha_beta():
     assert rel_err(out, spmv_golden(a, x, alpha=1.5, beta=-2.0, y=y0)) < 1e-5
 
 
-def test_2d_spmm_pallas_body():
+def test_2d_spmm_bucket_body():
     from sblas.parallel import Dist2DSpmmPlan
 
     mesh = make_mesh2d(2, 4)
-    a = datasets.emulate("cant", scale=0.04, dtype=np.float32)
+    a = datasets.emulate("uk-2002", scale=0.003, dtype=np.float32)
     x = np.random.default_rng(8).standard_normal((a.shape[1], 8)).astype(
         np.float32)
-    p = Dist2DSpmmPlan(a, mesh, local_method="pallas", min_fill=0.02,
-                       th=128)
-    assert p.local_method == "pallas"
+    p = Dist2DSpmmPlan(a, mesh)
+    assert p.local_method == "bucket"
     assert rel_err(np.asarray(p(x)), spmv_golden(a, x)) < 1e-4
-    # second k reuses the plan; ELL fallback engages for VMEM-bound k
+    # a second k reuses the plan's arrays
     x2 = np.random.default_rng(9).standard_normal((a.shape[1], 2)).astype(
         np.float32)
     assert rel_err(np.asarray(p(x2)), spmv_golden(a, x2)) < 1e-4
 
 
-def test_2d_spmm_bytes_model_per_k():
-    """bytes_per_iter_for(k) must report the body k actually runs
-    (regression: the 1D plan once clobbered its Pallas model)."""
+def test_2d_spmm_bytes_model():
+    """The stream model counts every stacked slab: R*C blocks, each padded
+    to the common geometry, 4 index + itemsize value bytes per slot."""
     from sblas.parallel import Dist2DSpmmPlan
 
     mesh = make_mesh2d(2, 4)
     a = datasets.emulate("cant", scale=0.04, dtype=np.float32)
-    p = Dist2DSpmmPlan(a, mesh, local_method="pallas", min_fill=0.02,
-                       th=128)
-    b_small = p.bytes_per_iter_for(8)       # pallas body
-    assert b_small == p._pallas_bytes
-    huge_k = 10_000_000                     # guaranteed VMEM-bound
-    b_huge = p.bytes_per_iter_for(huge_k)   # ell body
-    assert b_huge == p._ell_bytes
-    assert p.bytes_per_iter == p._pallas_bytes  # primary model untouched
+    p = Dist2DSpmmPlan(a, mesh)
+    slabs = p._arrs[0]
+    assert all(col.shape[:2] == (2, 4) for col, _ in slabs)
+    assert p.bytes_per_iter == sum(col.size for col, _ in slabs) * (4 + 4)
+    assert p.bytes_per_iter >= a.nnz * 8

@@ -31,33 +31,6 @@ def test_sptrsm_upper():
     assert rel_err(x, sptrsm_golden(u, b, lower=False)) < 2e-4
 
 
-def test_sptrsm_pallas_batched():
-    """The batched Pallas wavefront path (interpret mode on CPU), on a
-    factor deep enough to engage the dense-tail hybrid."""
-    spd = datasets.spd_diag_dominant(700, 6, seed=3, dtype=np.float32)
-    l = datasets.cholesky_factor(spd, dtype=np.float32)
-    k = 4
-    b = np.random.default_rng(2).standard_normal((l.shape[0], k)).astype(
-        np.float32)
-    plan = SptrsmPlan(l, method="pallas")
-    assert plan.method == "pallas"
-    x = np.asarray(plan(b))
-    assert rel_err(x, sptrsm_golden(l, b)) < 2e-4
-
-
-def test_sptrsm_pallas_chunked():
-    """k > MAX_RHS pads to whole chunks and lax.maps the lane-parallel
-    wavefront over them."""
-    l = datasets.lower_triangular(600, 5, bandwidth=80, seed=7,
-                                  dtype=np.float32)
-    k = 11   # pads to 2 chunks of 8
-    b = np.random.default_rng(8).standard_normal((l.shape[0], k)).astype(
-        np.float32)
-    plan = SptrsmPlan(l, method="pallas")
-    x = np.asarray(plan(b))
-    assert rel_err(x, sptrsm_golden(l, b)) < 2e-4
-
-
 def test_sptrsm_matches_columnwise_sptrsv():
     l = datasets.lower_triangular(180, 5, seed=4, dtype=np.float32)
     b = np.random.default_rng(3).standard_normal((180, 3)).astype(np.float32)
@@ -104,71 +77,3 @@ def test_sptrsm_apply_pure_jit_composable():
     arrs = plan.device_arrays()
     x = np.asarray(jax.jit(plan.apply_pure)(arrs, b))
     assert rel_err(x, sptrsm_golden(l, b)) < 2e-4
-
-def test_sptrsm_lanes_kernel():
-    """The RHS-on-sublanes multi-RHS kernel (VERDICT r1 item 5): one
-    gather/dot per round serves all 8 RHS. Must engage for k >= LANES_MIN_K
-    and match the golden on a factor with head + dense-tail blocks."""
-    spd = datasets.spd_diag_dominant(900, 6, seed=9, dtype=np.float32)
-    l = datasets.cholesky_factor(spd, dtype=np.float32)
-    k = 8
-    b = np.random.default_rng(11).standard_normal((l.shape[0], k)).astype(
-        np.float32)
-    plan = SptrsmPlan(l, method="pallas")
-    x = np.asarray(plan(b))
-    assert plan._lanes_state == "ok", "lanes kernel must engage"
-    assert rel_err(x, sptrsm_golden(l, b)) < 2e-4
-
-
-def test_sptrsm_lanes_band():
-    l = datasets.lower_triangular(700, 8, bandwidth=120, seed=12,
-                                  dtype=np.float32)
-    k = 5   # non-multiple of 8: RHS padding inside the chunk
-    b = np.random.default_rng(13).standard_normal((l.shape[0], k)).astype(
-        np.float32)
-    plan = SptrsmPlan(l, method="pallas")
-    x = np.asarray(plan(b))
-    assert plan._lanes_state == "ok"
-    assert rel_err(x, sptrsm_golden(l, b)) < 2e-4
-
-
-def test_sptrsm_lanes_upper():
-    lo = datasets.lower_triangular(400, 5, seed=14, dtype=np.float32)
-    u = csr_transpose(lo)
-    b = np.random.default_rng(15).standard_normal((400, 4)).astype(
-        np.float32)
-    plan = SptrsmPlan(u, lower=False, method="pallas")
-    x = np.asarray(plan(b))
-    assert plan._lanes_state == "ok"
-    assert rel_err(x, sptrsm_golden(u, b, lower=False)) < 2e-4
-
-
-def test_sptrsm_lanes_chunked_k11():
-    l = datasets.lower_triangular(500, 5, bandwidth=70, seed=16,
-                                  dtype=np.float32)
-    k = 11   # two chunks through the lanes kernel
-    b = np.random.default_rng(17).standard_normal((l.shape[0], k)).astype(
-        np.float32)
-    plan = SptrsmPlan(l, method="pallas")
-    x = np.asarray(plan(b))
-    assert plan._lanes_state == "ok"
-    assert rel_err(x, sptrsm_golden(l, b)) < 2e-4
-    # per-column agreement with single-RHS solves
-    x0 = np.asarray(sptrsv(l, b[:, 3]))
-    np.testing.assert_allclose(x[:, 3], x0, rtol=1e-4, atol=1e-5)
-
-
-@pytest.mark.parametrize("seed", range(4))
-def test_sptrsm_lanes_fuzz(seed):
-    rng = np.random.default_rng(6000 + seed)
-    n = int(rng.integers(60, 900))
-    deg = float(rng.uniform(1.5, 8.0))
-    bw = int(rng.choice([0, 40, 200]))
-    l = datasets.lower_triangular(n, deg, bandwidth=bw or None,
-                                  seed=seed, dtype=np.float32)
-    k = int(rng.integers(3, 9))
-    b = rng.standard_normal((n, k)).astype(np.float32)
-    plan = SptrsmPlan(l, method="pallas")
-    x = np.asarray(plan(b))
-    assert plan._lanes_state == "ok", (n, deg, bw, k)
-    assert rel_err(x, sptrsm_golden(l, b)) < 2e-3, (n, deg, bw, k)

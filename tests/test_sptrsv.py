@@ -76,21 +76,6 @@ def test_sptrsv_upper(dtype):
     assert rel_err(x, ref) < tol
 
 
-@pytest.mark.parametrize("lower", [True, False])
-def test_sptrsv_pallas_interpret(lower):
-    # Exercise the Pallas wavefront path explicitly (interpret mode on CPU)
-    # for BOTH sweeps — the upper-triangular ordering bug (ADVICE r1, high)
-    # was invisible to the auto path, which picks 'tiles' on CPU.
-    lo = datasets.lower_triangular(300, 5, seed=8, dtype=np.float32)
-    l = lo if lower else csr_transpose(lo)
-    b = np.random.default_rng(9).standard_normal(300).astype(np.float32)
-    plan = SptrsvPlan(l, lower=lower, method="pallas")
-    assert plan.method == "pallas", "pallas path must be reachable here"
-    x = np.asarray(plan(b))
-    ref = sptrsv_golden(l, b, lower=lower)
-    assert rel_err(x, ref) < 2e-4
-
-
 def test_sptrsv_missing_diag_raises():
     from sblas.formats import COO, coo_to_csr
 
@@ -116,73 +101,3 @@ def test_native_golden_matches_scipy():
     x = native.sptrsv_golden_native(l.indptr, l.indices, l.data, b)
     ref = sptrsv_golden(l, b)
     assert rel_err(x, ref) < 1e-12
-
-
-def test_sptrsv_dense_tail_hybrid():
-    # Deep-narrow level tails (Cholesky factors of meshes) must switch to
-    # dense 128-row block backsubstitution instead of padding each tiny
-    # level to a 128-row block (SURVEY.md §7 hard part 2; VERDICT r1 item 5).
-    from sblas.ops.kernels.sptrsv_pallas import PallasSptrsv, build_layout
-
-    a = datasets.poisson2d(40, dtype=np.float64)
-    l = datasets.cholesky_factor(a, dtype=np.float32)
-    lay = build_layout(l, cache=False)
-    assert lay.n_dense > 0
-    pad_ratio = lay.num_blocks * 128 / l.shape[0]
-    assert pad_ratio < 2.0, pad_ratio  # was ~128 without the hybrid
-
-    p = PallasSptrsv(l)
-    b = np.random.default_rng(1).standard_normal(l.shape[0]).astype(np.float32)
-    x = np.asarray(p.apply_traced(b))
-    assert rel_err(x, sptrsv_golden(l, b)) < 2e-4
-
-    u = csr_transpose(l)
-    pu = PallasSptrsv(u, lower=False)
-    xu = np.asarray(pu.apply_traced(b))
-    assert rel_err(xu, sptrsv_golden(u, b, lower=False)) < 2e-4
-
-
-def test_sptrsv_dense_tail_unit_diagonal():
-    from sblas.ops.kernels.sptrsv_pallas import PallasSptrsv
-
-    l = datasets.banded(600, 1, seed=5, dtype=np.float32)  # bidiagonal chain
-    from sblas.formats import tril
-    l = tril(l)
-    b = np.random.default_rng(6).standard_normal(600).astype(np.float32)
-    p = PallasSptrsv(l)
-    assert p.n_dense_blocks > 0  # fully serial -> all tail
-    x = np.asarray(p.apply_traced(b))
-    assert rel_err(x, sptrsv_golden(l, b)) < 2e-4
-
-
-def test_sptrsv_nd_cholesky_factor():
-    # nested-dissection ordered mesh factor: the realistic BASELINE config
-    # #3 workload — wide early levels + narrow tail (hybrid head+dense).
-    from sblas.ops.kernels.sptrsv_pallas import PallasSptrsv, build_layout
-
-    a = datasets.poisson2d_nd(40, dtype=np.float64)
-    l = datasets.cholesky_factor(a, dtype=np.float32)
-    lay = build_layout(l, cache=False)
-    assert lay.num_blocks * 128 / l.shape[0] < 2.0
-    p = PallasSptrsv(l)
-    b = np.random.default_rng(2).standard_normal(l.shape[0]).astype(np.float32)
-    x = np.asarray(p.apply_traced(b))
-    assert rel_err(x, sptrsv_golden(l, b)) < 2e-4
-
-
-@pytest.mark.parametrize("dot_mode,tol",
-                         [("highest", 2e-4), ("split3", 2e-4),
-                          ("split2", 2e-3), ("default", 2e-1)])
-def test_sptrsv_dot_modes(dot_mode, tol):
-    # e25 (experiments/e25_results.jsonl): the segment dot is ~4-6% of the
-    # round, split3 matches HIGHEST accuracy (5.6e-8 vs 5.5e-8 end-to-end
-    # on the band factor) and is the default; split2/default trade
-    # accuracy. This guards correctness of every mode's kernel lowering.
-    from sblas.ops.kernels.sptrsv_pallas import PallasSptrsv
-
-    a = datasets.poisson2d_nd(24, dtype=np.float64)
-    l = datasets.cholesky_factor(a, dtype=np.float32)
-    p = PallasSptrsv(l, dot_mode=dot_mode)
-    b = np.random.default_rng(3).standard_normal(l.shape[0]).astype(np.float32)
-    x = np.asarray(p.apply_traced(b))
-    assert rel_err(x, sptrsv_golden(l, b)) < tol
